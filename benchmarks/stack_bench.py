@@ -1,27 +1,20 @@
-"""BASELINE config 4 on-chip benchmark — hierarchical stack throughput.
+"""BASELINE config 4 benchmark — hierarchical control-stack throughput.
 
 A fleet of FULL control stacks (23-DoF humanoid plant, 10 Hz DCM-MPC outer
-loop, 100 Hz whole-body QP inner loop, stiff ROS2-W contact physics,
-momentum observer + RLS push filter in the loop — ``blf_tpu.mpc.stack``)
-run on one TPU chip. Reports **outer ticks/s/chip** and the derived
-real-time fleet size (each stack needs 10 outer ticks/s), plus convergence
-counts so the number is honest about solve quality, not just speed.
+loop with horizon 8, 100 Hz whole-body QP inner loop with 10 solves per
+outer tick, stiff ROS2-W contact physics at 2 substeps, momentum observer +
+RLS push filter in the loop — ``blf_tpu.mpc.stack``) on one GPU. Reports
+**outer ticks/s/card** and the derived real-time fleet size (each stack
+needs 10 outer ticks/s), plus convergence counts so the number is honest
+about solve quality, not just speed.
 
-r5 production path: the FLEET-NATIVE tick (``make_fleet_stack_step``) with
-both QP solves on the fused kernels — the shared-factor batch-minor ADMM
-for the DCM-MPC and the per-lane-operator lane kernel + batch-minor
-Cholesky for the WBC — and the plant's mass-matrix solve on a per-tick
-lagged inverse (``plant_lagged_minv``). The r4 vmapped/XLA path measured
-470.9 ticks/s at batch 256 (judge); see SOL.md's stack section for the
-component budget behind the r5 number.
+Batch bucketing: the requested batch is padded up to a bucket size (256,
+then powers of two), so one compilation per bucket covers the whole
+operating range and a warm persistent compilation cache serves any new
+batch size in the bucket.
 
-Batch bucketing (recompile tax): the requested batch is padded up to a
-bucket size (256, then powers of two), so one compilation per bucket covers
-the whole operating range and a warm persistent cache
-(``/tmp/jaxcache``) serves any new batch size in seconds.
-
-Run on TPU:   python benchmarks/stack_bench.py [batch] [--xla] [--fullop]
-Prints ONE JSON line (same contract as bench.py).
+Run:   python benchmarks/stack_bench.py [batch]
+Exits non-zero without a GPU. Prints ONE JSON line.
 """
 
 import json
@@ -33,6 +26,9 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 import numpy as np
 
+HORIZON = 8
+TICKS = 5
+
 
 def bucket_batch(batch: int) -> int:
     """Smallest bucket ≥ batch: 256, 512, 1024, ... (one compile each)."""
@@ -42,29 +38,48 @@ def bucket_batch(batch: int) -> int:
     return b
 
 
-def main(batch: int = 512, backend: str = "pallas", substeps: int = 2,
-         wbc_iters: int = 150, check_every: int = 150,
-         mpc_iters: int = 100) -> None:
-    import jax
+def production_config():
+    """The config-4 operating point.
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jaxcache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    Stiff ROS2-W plant at 2 substeps (closed-loop DCM within 7.5e-4 m of
+    the 40-substep RK4 reference over 0.4 s; pinned by
+    tests/test_control_stack.py) with the per-tick lagged mass-matrix
+    inverse and the stiff-path-only stage operator; one KKT factorization
+    per WBC solve (check_every = iterations); warm starts and adaptive ρ
+    carried across ticks.
+    """
+    from blf_tpu.mpc.stack import StackConfig
+
+    return StackConfig(mpc_dt=0.1, horizon=HORIZON, wbc_per_mpc=10,
+                       physics_per_wbc=2, plant_method="rosenbrock",
+                       mpc_iterations=100, wbc_iterations=150,
+                       wbc_check_every=150, wbc_polish_iters=0,
+                       wbc_scaling_iters=4, wbc_backend="pallas",
+                       plant_lagged_minv=True, ros_op_stiff=True)
+
+
+def build_stack(batch: int, config=None):
+    """The config-4 fleet at ``batch`` lanes (unpadded).
+
+    Returns ``(step, state, pushes, refs)``: ``step(state, pushes, *refs)``
+    is one fleet outer tick (not jitted), ``state`` the standing fleet and
+    ``pushes`` (batch, 2) per-lane push forces drawn from seed 0.
+    """
+    import jax
     import jax.numpy as jnp
 
     from blf_tpu.models import rigid_body as rb
     from blf_tpu.models.kinematics import forward_kinematics, frame_pose
     from blf_tpu.models.lipm import LIPMParams
     from blf_tpu.models.robots import HUMANOID_SOLE_FRAMES, make_humanoid_23dof
-    from blf_tpu.mpc.stack import (
-        StackConfig, init_stack, make_fleet_stack_step)
+    from blf_tpu.mpc.stack import init_stack, make_fleet_stack_step
     from blf_tpu.mpc.wholebody import WholeBodyParams
 
+    config = config or production_config()
     tree = make_humanoid_23dof()
     wbc = WholeBodyParams(contact_frames=HUMANOID_SOLE_FRAMES)
     n = tree.num_dofs
-    horizon = 8
     dtype = jnp.float32
-    padded = bucket_batch(batch)
 
     # standing posture (same as tests/test_control_stack.py, f32)
     q = np.zeros(n)
@@ -90,45 +105,16 @@ def main(batch: int = 512, backend: str = "pallas", substeps: int = 2,
     lipm = LIPMParams(jnp.asarray(float(com[2]), dtype),
                       jnp.asarray(9.81, dtype))
     stance = jnp.asarray(com[:2], dtype)
-    zmp_ref = jnp.broadcast_to(stance, (horizon, 2))
-    dcm_ref = jnp.broadcast_to(stance, (horizon + 1, 2))
+    zmp_ref = jnp.broadcast_to(stance, (HORIZON, 2))
+    dcm_ref = jnp.broadcast_to(stance, (HORIZON + 1, 2))
     poly_A = jnp.tile(jnp.asarray(
-        [[1.0, 0], [-1.0, 0], [0, 1.0], [0, -1.0]], dtype), (horizon, 1, 1))
+        [[1.0, 0], [-1.0, 0], [0, 1.0], [0, -1.0]], dtype), (HORIZON, 1, 1))
     half = jnp.asarray([0.09, 0.09, 0.11, 0.11], dtype)
     poly_b = jnp.broadcast_to(
         jnp.asarray([stance[0], -stance[0], stance[1], -stance[1]],
                     dtype) + half,
-        (horizon, 4),
+        (HORIZON, 4),
     )
-    # production operating point (r5): stiff ROS2-W plant at 2 substeps
-    # (closed-loop DCM within 7.5e-4 m of the 40-substep RK4 reference over
-    # 0.4 s — 4x inside the 3e-3 contract of tests/test_control_stack.py;
-    # 1 substep measures 1.6e-3, kept as margin) with the per-tick lagged
-    # mass-matrix inverse, WBC ADMM on the fused lane kernel (one
-    # factorization per solve: check_every = iterations), MPC on the
-    # shared-factor batch-minor kernel, warm starts + adaptive ρ carried
-    # across ticks, low-ρ dual polish tail
-    config = StackConfig(mpc_dt=0.1, horizon=horizon, wbc_per_mpc=10,
-                         physics_per_wbc=substeps, plant_method="rosenbrock",
-                         mpc_iterations=mpc_iters, wbc_iterations=wbc_iters,
-                         wbc_check_every=check_every,
-                         # the low-rho dual polish is an XLA-path fix (f32
-                         # dual granularity under refined KKT solves); on
-                         # the fused kernel path it moves neither residuals
-                         # nor convergence and costs a second factorization
-                         # per solve (+2.7% measured) — so it is off there
-                         wbc_polish_iters=(25 if backend == "xla" else 0),
-                         wbc_scaling_iters=4,
-                         mpc_backend=backend, wbc_backend=backend,
-                         plant_lagged_minv=(backend == "pallas"),
-                         # stiff-path-only stage operator (production): the
-                         # fleet closed-loop DCM error vs the RK4 reference
-                         # peaks at 1.0e-3 m in the push transient and
-                         # DECAYS to ~3e-4 in steady state (8-tick CPU
-                         # gate, pinned by tests/test_control_stack.py);
-                         # --fullop restores the full-dynamics jacfwd
-                         ros_op_stiff=("--fullop" not in sys.argv
-                                       and backend == "pallas"))
     null_poses = {}
     for f in HUMANOID_SOLE_FRAMES:
         _, p0 = frame_pose(tree, poses, f)
@@ -138,32 +124,48 @@ def main(batch: int = 512, backend: str = "pallas", substeps: int = 2,
     step = make_fleet_stack_step(tree, wbc, lipm, config, null_poses,
                                  q_ref=plant.joint_positions,
                                  com_height_ref=float(com[2]))
-    num_constraints = 2 * horizon + horizon * 4
-    state0 = init_stack(tree, lipm, config, plant, num_constraints)
-
-    # fleet: one StackState per scenario, each with its own push realization;
-    # bucket-padded lanes run unpushed and are excluded from reporting
+    state0 = init_stack(tree, lipm, config, plant, 2 * HORIZON + HORIZON * 4)
     state = jax.tree_util.tree_map(
-        lambda x: jnp.broadcast_to(x, (padded,) + x.shape), state0)
+        lambda x: jnp.broadcast_to(x, (batch,) + x.shape), state0)
     rng = np.random.default_rng(0)
-    pushes_real = rng.uniform(-8.0, 8.0, (batch, 2))
-    pushes = jnp.asarray(
-        np.concatenate([pushes_real, np.zeros((padded - batch, 2))]), dtype)
+    pushes = jnp.asarray(rng.uniform(-8.0, 8.0, (batch, 2)), dtype)
+    return step, state, pushes, (dcm_ref, zmp_ref, poly_A, poly_b)
 
-    ticks = 5
 
-    # pushes rides as a jit ARGUMENT (not a closure constant): closed-over
+def make_run_ticks(step, refs, ticks):
+    """jit of ``ticks`` outer ticks scanned; returns (state, last trace)."""
+    import jax
+
+    # pushes ride as a jit ARGUMENT (not a closure constant): closed-over
     # concrete arrays are baked into the HLO as constants, so two batch
     # sizes in the same bucket would produce different programs and defeat
     # the persistent compilation cache the bucketing exists to exploit
     @jax.jit
     def run_ticks(state, pushes):
         def body(s, _):
-            s2, tr = step(s, pushes, dcm_ref, zmp_ref, poly_A, poly_b)
-            return s2, tr
+            return step(s, pushes, *refs)
         state, traces = jax.lax.scan(body, state, None, length=ticks)
-        last = jax.tree_util.tree_map(lambda a: a[-1], traces)
-        return state, last
+        return state, jax.tree_util.tree_map(lambda a: a[-1], traces)
+
+    return run_ticks
+
+
+def main(batch: int = 512) -> None:
+    import jax
+    import jax.numpy as jnp
+
+    from blf_tpu.utils.compile_cache import enable_compile_cache
+    from blf_tpu.utils.profiling import require_gpu
+    from blf_tpu.utils.status import status_counts
+
+    device = require_gpu()
+    enable_compile_cache()
+    padded = bucket_batch(batch)
+    config = production_config()
+    step, state, pushes, refs = build_stack(padded, config)
+    # bucket-padded lanes run unpushed and are excluded from reporting
+    pushes = pushes.at[batch:].set(0.0)
+    run_ticks = make_run_ticks(step, refs, TICKS)
 
     t0 = time.perf_counter()
     state, trace = run_ticks(state, pushes)
@@ -173,73 +175,35 @@ def main(batch: int = 512, backend: str = "pallas", substeps: int = 2,
     t0 = time.perf_counter()
     state, trace = run_ticks(state, pushes)
     jax.block_until_ready(state.plant.base_position)
-    elapsed = time.perf_counter() - t0
-
-    outer_tick_s = elapsed / ticks                    # wall per fleet tick
-    ticks_per_sec = padded / outer_tick_s             # outer ticks/s/chip
-    realtime_stacks = ticks_per_sec / 10.0            # 10 Hz outer rate
-    # a real-time target of 100 concurrent full stacks per chip (the fleet
-    # analogue of one 100 Hz controller per robot; no reference number
-    # exists — BASELINE.json configs[3] asks for the measurement)
-    bar = 100.0
-
-    from blf_tpu.utils.status import status_counts
+    outer_tick_s = (time.perf_counter() - t0) / TICKS
 
     sel = lambda a: a[:batch]                         # reported lanes only
-    finite = bool(jnp.all(jnp.isfinite(sel(state.plant.base_position))))
-    counts = status_counts(sel(trace.status))
+    ticks_per_sec = batch / outer_tick_s              # real lanes only
     print(json.dumps({
-        "metric": "stack_outer_ticks_per_sec_per_chip",
-        "value": round(ticks_per_sec, 2),
-        "unit": "ticks/s/chip",
-        "vs_baseline": round(realtime_stacks / bar, 3),
+        "metric": "stack_outer_ticks_per_sec_per_card",
+        "value": ticks_per_sec,
+        "unit": "ticks/s/card",
         "detail": {
             "batch": batch,
             "bucket": padded,
-            "realtime_stacks_per_chip": round(realtime_stacks, 1),
-            "fleet_tick_ms": round(outer_tick_s * 1e3, 2),
-            "inner_wbc_hz_equiv": round(10.0 * config.wbc_per_mpc
-                                        * realtime_stacks, 0),
+            "realtime_stacks_per_card": ticks_per_sec / 10.0,
+            "fleet_tick_ms": outer_tick_s * 1e3,
             "mpc_converged": int(jnp.sum(sel(trace.mpc_converged))),
             "wbc_converged": int(jnp.sum(sel(trace.wbc_converged))),
-            "wbc_converged_frac": round(float(jnp.mean(
-                sel(trace.wbc_converged).astype(jnp.float32))), 4),
-            "status_counts": counts,
+            "status_counts": status_counts(sel(trace.status)),
             "wbc_max_rp": float(jnp.max(sel(trace.wbc_max_rp))),
             "wbc_median_rp": float(jnp.median(sel(trace.wbc_max_rp))),
             "wbc_max_rd": float(jnp.max(sel(trace.wbc_max_rd))),
             "wbc_median_rd": float(jnp.median(sel(trace.wbc_max_rd))),
-            "all_finite": finite,
-            "compile_s": round(compile_s, 1),
-            "config": {"horizon": horizon, "wbc_per_mpc": config.wbc_per_mpc,
-                       "physics_per_wbc": config.physics_per_wbc,
-                       "plant_method": config.plant_method,
-                       "plant_lagged_minv": config.plant_lagged_minv,
-                       "ros_op_stiff": config.ros_op_stiff,
-                       "mpc_iterations": config.mpc_iterations,
-                       "wbc_iterations": config.wbc_iterations,
-                       "wbc_check_every": config.wbc_check_every,
-                       "wbc_polish_iters": config.wbc_polish_iters,
-                       "mpc_backend": config.mpc_backend,
-                       "wbc_backend": config.wbc_backend,
-                       "step": "fleet"},
-            "device": str(jax.devices()[0]),
+            "all_finite": bool(jnp.all(jnp.isfinite(
+                sel(state.plant.base_position)))),
+            "compile_s": compile_s,
+            "config": config._asdict(),
+            "device": device,
             "dtype": "float32",
         },
     }))
 
 
 if __name__ == "__main__":
-    args = [a for a in sys.argv[1:] if not a.startswith("--")]
-    backend = "xla" if "--xla" in sys.argv else "pallas"
-    kw = {}
-    for a in sys.argv[1:]:
-        if a.startswith("--substeps="):
-            kw["substeps"] = int(a.split("=")[1])
-        elif a.startswith("--iters="):
-            kw["wbc_iters"] = int(a.split("=")[1])
-        elif a.startswith("--check="):
-            kw["check_every"] = int(a.split("=")[1])
-        elif a.startswith("--mpc="):
-            kw["mpc_iters"] = int(a.split("=")[1])
-    main(int(args[0]) if args else 512, backend, **kw)
+    main(int(sys.argv[1]) if len(sys.argv) > 1 else 512)

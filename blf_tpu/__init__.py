@@ -1,4 +1,4 @@
-"""blf_tpu — a TPU-native bipedal-locomotion framework.
+"""blf_tpu — a batched, accelerator-native bipedal-locomotion framework.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
 ``bipedal-locomotion-framework`` C++ suite (reference layer map in SURVEY.md §1):

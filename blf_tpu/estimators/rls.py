@@ -1,6 +1,6 @@
 """Recursive least squares with forgetting factor, as a batched filter.
 
-TPU-native re-design of the reference's ``Estimators`` component
+Accelerator-native re-design of the reference's ``Estimators`` component
 (``src/Estimators/src/RecursiveLeastSquare.cpp``; SURVEY.md §2 row 5, §3.2).
 The reference is a stateful object advanced once per control tick with a
 regressor callback; here the update is a **pure step function**
@@ -13,7 +13,7 @@ per MPC scenario — the batch-width win called out in SURVEY.md §3.2). The
 (:func:`blf_tpu.ops.linalg.solve_psd`) instead of the reference's explicit
 ``.inverse()`` (``RecursiveLeastSquare.cpp:120-123``) — same math, better
 conditioning, and pure elementwise XLA ops so wide scenario batches never
-touch the latency-bound TPU linalg custom calls.
+touch per-matrix linalg library calls.
 
 Config parity: :func:`params_from_handler` reads the same four keys the
 reference's ``initialize`` does — ``lambda``, ``measurement_covariance``
@@ -73,7 +73,7 @@ def rls_step(
     """
     lam, R = params.lam, params.measurement_covariance
     theta, P = state.theta, state.covariance
-    hi = jax.lax.Precision.HIGHEST  # bf16 MXU products break P's PSD-ness
+    hi = jax.lax.Precision.HIGHEST  # TF32/bf16 products break P's PSD-ness
     #   (S goes indefinite → Cholesky NaN); these m×p products are tiny and
     #   latency-bound, so full-f32 passes are free.
 
@@ -81,8 +81,8 @@ def rls_step(
     S = lam * R + jnp.matmul(
         AP, jnp.swapaxes(regressor, -1, -2), precision=hi)        # (…, m, m)
     # K = P Aᵀ S⁻¹  ⇔  Kᵀ = S⁻¹ A P (S symmetric PSD). solve_psd unrolls the
-    # tiny m×m Cholesky into elementwise ops: the TPU linalg custom call is
-    # latency-bound per matrix and costs ~100× more on wide scenario batches.
+    # tiny m×m Cholesky into elementwise ops instead of a per-matrix linalg
+    # library call on wide scenario batches.
     K = jnp.swapaxes(solve_psd(S, AP), -1, -2)                    # (…, p, m)
 
     innovation = measurement - jnp.einsum(

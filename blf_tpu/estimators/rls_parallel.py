@@ -3,7 +3,7 @@ associative scan.
 
 The reference's ``RecursiveLeastSquare::advance`` is an inherently sequential
 recursion (``RecursiveLeastSquare.cpp:96-133``; SURVEY.md §5 calls it out as
-such). On TPU, long identification streams don't have to pay that serial
+such). On an accelerator, long identification streams don't have to pay that serial
 depth: the filter has an exact **information-form** restatement in which the
 whole trajectory of estimates is an exponentially-weighted prefix reduction —
 an associative operation — so the T-step recursion collapses to O(log T)
@@ -52,8 +52,8 @@ from blf_tpu.ops.linalg import solve_psd
 __all__ = ["rls_leaf_elements", "rls_combine", "rls_parallel", "rls_fit",
            "rls_parallel_sharded"]
 
-# Full-f32 MXU passes: the p×p/m×p products are tiny and latency-bound, and
-# bf16 default precision visibly degrades the information aggregates.
+# Full-f32 products: the p×p/m×p products are tiny and latency-bound, and
+# reduced (TF32/bf16) precision visibly degrades the information aggregates.
 _HI = jax.lax.Precision.HIGHEST
 
 

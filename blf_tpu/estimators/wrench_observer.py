@@ -202,10 +202,9 @@ def wrench_normal_equations(
 ):
     """The (G, J·r) normal-equation pair of :func:`wrenches_from_residual`
     WITHOUT the solve — so a fleet caller can vmap the Jacobian assembly
-    and route the tiny batched SPD solve through the batch-minor Cholesky
-    kernel (``blf_tpu.ops.pallas.linalg.spd_solve_lane``) instead of
-    XLA's per-lane ``linalg.solve`` (the r5 stack-tick profile found every
-    XLA batched small factorization worth hoisting)."""
+    and run the tiny batched SPD solve once for the whole fleet as the
+    unrolled :func:`blf_tpu.ops.linalg.solve_psd_small` instead of a
+    per-lane ``linalg.solve``."""
     poses = forward_kinematics(
         tree, state.base_position, state.base_rotation, state.joint_positions
     )

@@ -1,6 +1,6 @@
 """Continuous spring–damper contact model over a rectangular patch.
 
-TPU-native re-design of the reference's ``ContactModels`` component
+Accelerator-native re-design of the reference's ``ContactModels`` component
 (``src/ContactModels/.../ContinuousContactModel.{h,cpp}``; SURVEY.md §2 row 6).
 The reference caches wrench/f/g/regressor in member buffers behind dirty flags
 (``ContactModel.cpp:12-92``); here each product is a **pure function** of

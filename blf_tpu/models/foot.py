@@ -20,14 +20,8 @@ Dynamics (mixed representation, foot frame at the CoM):
 with ``w = contact_wrench(params, state)`` — the closed-form patch wrench
 (``ContinuousContactModel.cpp:79-108``).
 
-Two execution paths with identical math:
-
-- :func:`foot_rollout` with ``backend="xla"`` — ``lax.scan`` over
-  :func:`foot_dynamics` (composes with the generic integrators and the full
-  articulated engine);
-- ``backend="pallas"`` — the fused VMEM-resident kernel
-  (:mod:`blf_tpu.ops.pallas.rollout`), which keeps a lane block on-chip for
-  the entire horizon instead of streaming state through HBM every step.
+:func:`foot_rollout` runs ``lax.scan`` over :func:`foot_dynamics` (it
+composes with the generic integrators and the full articulated engine).
 """
 
 from __future__ import annotations
@@ -118,38 +112,20 @@ def foot_rollout(
     null_rotation: jnp.ndarray,
     dt: float,
     steps: int,
-    *,
-    backend: str = "xla",
-    block_lanes: int = 2048,
-    chunks: int = 4,
-    step_unroll: int = 1,
 ) -> FootState:
     """Integrate ``steps`` Euler steps; returns the final state.
 
-    ``backend="pallas"`` requires a single flat batch axis on every state
-    leaf (``(B, …)``, B a multiple of 256 — pad the fleet) and per-lane or
-    scalar ``spring_coeff``/``damper_coeff``; it runs the whole horizon in
-    one fused kernel. The XLA path accepts anything broadcastable.
+    Every argument broadcasts over leading batch axes (per-lane
+    ``spring_coeff``/``damper_coeff`` included).
     """
-    if backend == "pallas":
-        from blf_tpu.ops.pallas.rollout import foot_rollout_fused
-
-        return foot_rollout_fused(
-            cparams, fparams, state, null_position, null_rotation,
-            dt=dt, steps=steps, block_lanes=block_lanes, chunks=chunks,
-            step_unroll=step_unroll,
-        )
-    if backend != "xla":
-        raise ValueError(f"unknown backend {backend!r}")
 
     def body(s, _):
         return foot_euler_step(
             cparams, fparams, s, null_position, null_rotation, dt
         ), None
 
-    # force full-f32 3×3 products: the MXU's bf16 default injects ~2e-3
-    # rotation error over a 50-step stiff-contact rollout (measured on v5e
-    # against the elementwise pallas kernel, which is exact f32)
+    # force full-f32 3×3 products: a reduced-precision (TF32 / bf16) product
+    # injects ~1e-3 rotation error over a 50-step stiff-contact rollout
     with jax.default_matmul_precision("float32"):
         out, _ = jax.lax.scan(body, state, None, length=steps)
     return out

@@ -4,7 +4,7 @@ The reference delegates all articulated kinematics/dynamics to iDynTree's
 ``KinDynComputations`` (``FloatingBaseSystemDynamics.cpp:163-226`` calls
 ``setRobotState``/``getFreeFloatingMassMatrix``/``generalizedBiasForces``/
 ``getFrameFreeFloatingJacobian``). SURVEY.md §7 marks rebuilding that subset —
-batched, fixed-shape, TPU-native — as the hard part of the port. This module
+batched, fixed-shape, accelerator-native — as the hard part of the port. This module
 is the kinematic half; :mod:`blf_tpu.models.rigid_body` builds dynamics on it.
 
 Conventions (matching iDynTree so the reference's call sites translate 1:1):
@@ -296,7 +296,7 @@ def point_jacobian_columns(tree: KinematicTree, poses: LinkPoses, link_index: in
 
     Assembled as whole-DoF-vector ops (one cross + static masks), not a
     per-joint loop — the trace-time unrolled version cost L·n tiny ops per
-    call and dominated every dynamics evaluation's op count on TPU.
+    call and dominated every dynamics evaluation's op count.
     """
     dtype = poses.rotation.dtype
     n = tree.num_dofs

@@ -12,7 +12,7 @@ Formulation (all in the mixed representation, like iDynTree):
 - Per-link spatial inertia at the link origin, world axes:
   ``I_i = [[m·1, −m ĉ], [m ĉ, R I_c Rᵀ − m ĉ ĉ]]`` with ``c = R c_local``.
 - Mass matrix by Jacobian composition: ``M(q) = Σ_i J_iᵀ I_i J_i`` — a batch
-  of tiny GEMMs the MXU eats; equivalent to (not a translation of) CRBA.
+  of tiny batched GEMMs; equivalent to (not a translation of) CRBA.
 - Bias forces by the Newton–Euler balance in the hybrid frame:
   ``h = Σ_i J_iᵀ (I_i (J̇_i ν) + β_i − f_i^grav)`` with the hybrid-frame
   velocity bias ``β_i = [m ω×(ω×c); ω̂ (R I_c Rᵀ) ω + m c×(ω×(ω×c))]``.

@@ -3,7 +3,7 @@
 The reference consumes arbitrary robot models through iDynTree's URDF
 loader (``KinDynComputations`` set up from a model file; consumed at
 ``/root/reference/src/System/src/FloatingBaseSystemDynamics.cpp:163-172``).
-This module is the generality axis of the TPU build: any URDF within the
+This module is the generality axis of the framework: any URDF within the
 supported subset lowers to the same static :class:`KinematicTree` spec the
 batched kinematics/dynamics engine compiles against
 (:mod:`blf_tpu.models.kinematics`, SURVEY.md §7 "kinematic tree from

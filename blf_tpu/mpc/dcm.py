@@ -32,6 +32,7 @@ import jax
 import jax.numpy as jnp
 
 from blf_tpu.models.lipm import LIPMParams, com_trajectory_from_dcm, lipm_omega
+from blf_tpu.ops.precision import f32_matmuls
 from blf_tpu.mpc.qp import (QPSolution, factor_shared_qp, solve_qp,
                             solve_qp_factored, solve_qp_shared)
 
@@ -71,6 +72,7 @@ def _difference_matrix(N: int, dtype):
     return eye[1:] - eye[:-1]
 
 
+@f32_matmuls
 def build_dcm_qp(
     params: LIPMParams,
     dt,
@@ -150,6 +152,7 @@ def build_dcm_qp(
     return P, qvec, A, l, u
 
 
+@f32_matmuls
 def solve_dcm_mpc(
     params: LIPMParams,
     dt,
@@ -237,7 +240,7 @@ def solve_dcm_mpc(
     # (a = e^{ω·dt} > 1), so over a long gait horizon that recursion
     # amplifies dtype rounding by a^T (≈1e13 at T = 96, ω·dt ≈ 0.33; f32
     # trajectories exploded to ±5e4 while the QP itself was converged —
-    # caught by the f32 test lane). Consequence (ADVICE r3): plan.dcm/com
+    # caught by the f32 test lane). Consequence: plan.dcm/com
     # satisfy the DCM dynamics only up to the QP residual — on
     # iteration-capped unconverged lanes, gate on plan.qp.converged before
     # consuming them as dynamically consistent trajectories.

@@ -15,8 +15,8 @@ Iteration (α-relaxed ADMM, per-constraint penalty ρ):
     z⁺ = clip(α A x̃ + (1−α) z + y/ρ, l, u)
     y⁺ = y + ρ (α A x̃ + (1−α) z − z⁺)
 
-The KKT matrix is factored **once** per solve (batched Cholesky — MXU work)
-and reused across iterations; equality rows (l == u) get a stiffer ρ as in
+The KKT matrix is factored **once** per stage (batched Cholesky) and reused
+across iterations; equality rows (l == u) get a stiffer ρ as in
 OSQP. Everything broadcasts over leading batch axes and is ``vmap``-free by
 construction (but composes with ``vmap``/``shard_map`` for sharded sweeps).
 """
@@ -32,8 +32,8 @@ __all__ = ["QPSolution", "SharedQPFactors", "solve_qp", "solve_qp_lanes",
            "solve_qp_shared", "factor_shared_qp", "solve_qp_factored",
            "shard_factors_rows", "solve_qp_factored_rowsharded"]
 
-# TPU MXU defaults to bf16-accumulated matmuls for f32 inputs, which floors
-# ADMM residuals around 1e-3; all solver contractions force full f32 passes.
+# Reduced-precision (TF32 / bf16) products bias the ADMM fixed point and
+# floor residuals around 1e-3; every solver contraction asks for full f32.
 _PRECISION = jax.lax.Precision.HIGHEST
 
 
@@ -41,12 +41,9 @@ def _einsum(spec, *ops):
     return jnp.einsum(spec, *ops, precision=_PRECISION)
 
 
-# Shared f32-matmul context (see blf_tpu.ops.precision): the MXU's bf16
-# default biases the ADMM fixed point — residuals stall at ~1e-2 regardless
-# of iteration count. Measured cost on the fleet tick: none (HBM-bound).
+# Shared f32-matmul context (see blf_tpu.ops.precision) for the products
+# not written through _einsum.
 from blf_tpu.ops.precision import f32_matmuls as _f32_matmuls
-
-
 
 
 
@@ -61,9 +58,7 @@ class QPSolution(NamedTuple):
     converged: jnp.ndarray        # (…,) bool
     objective: jnp.ndarray        # (…,) ½xᵀPx + qᵀx
     rho_scale: jnp.ndarray = None  # (…, 1) adapted per-lane ρ multiplier s
-    refined: jnp.ndarray = None   # () bool: iterative refinement actually ran
-    #   (False when a pallas backend dropped a refine request — the accuracy
-    #   contract differs by backend and this is the runtime signal, ADVICE r1)
+    refined: jnp.ndarray = None   # () bool: iterative refinement ran
 
 
 @_f32_matmuls
@@ -104,9 +99,7 @@ def solve_qp(
     ``kkt_inverse=True`` (default) applies the per-stage KKT factor as an
     explicit inverse: one extra batched triangular solve per *stage* buys
     per-*iteration* x-steps that are plain batched matvecs instead of
-    sequential triangular substitutions — on TPU the triangular solve is the
-    latency chain, so this is the difference between the solver running at
-    dispatch floor and at math throughput. ``kkt_refine`` iterative-
+    sequential triangular substitutions. ``kkt_refine`` iterative-
     refinement passes against the exact KKT keep the x-step error at the
     cho_solve level (see the in-code measurement note for the default).
 
@@ -131,6 +124,7 @@ def solve_qp(
     ``backend="pallas"`` dispatches to :func:`solve_qp_lanes` — the fused
     per-lane-operator kernel path (one batch axis required; ``kkt_inverse``/
     ``kkt_refine``/``unroll`` are XLA-path knobs and are ignored there).
+    ``backend="xla"`` is its plain reference.
     """
     if backend == "pallas":
         return solve_qp_lanes(
@@ -217,8 +211,7 @@ def solve_qp(
 
             def kkt_solve(rhs):
                 # inverse-apply + refinement passes against the exact KKT:
-                # matvec-only per iteration (TPU throughput path, see
-                # docstring). Three passes measured necessary to match
+                # matvec-only per iteration (see docstring). Three passes measured necessary to match
                 # cho_solve convergence counts on the ill-conditioned
                 # walking-gait transcription in f32 (1 pass lost 5/64
                 # marginal lanes at 1e-4 tolerances, 2 passes 2/64; 3
@@ -363,23 +356,21 @@ def solve_qp_lanes(
     polish_scale: float = 0.1,
     s_min: float = 1e-4,
     s_max: float = 1e4,
-    interpret: Optional[bool] = None,
 ) -> QPSolution:
     """Fused-kernel ADMM for a batch of QPs with PER-LANE (P, A).
 
     The whole-body-QP shape of the control stack: every lane carries its own
     cost and constraint matrices (its own mass matrix / Jacobians), so the
     shared-factor spectral path is unavailable, and the XLA batched path
-    degenerates into chains of tiny lane-major matvecs plus batched Cholesky
-    refactorizations (judge-profiled r4: ~60 % of the config-4 fleet tick).
+    runs every iteration as several launches of small batched matvecs.
     This path instead:
 
     - Ruiz-equilibrates per lane (same as :func:`solve_qp`);
-    - per stage, builds ``K(s) = P̄ + σI + s·ĀᵀρĀ`` (batched GEMM — MXU) and
-      inverts it with the batch-minor Cholesky kernel
-      (:func:`blf_tpu.ops.pallas.linalg.cholesky_inverse_lane`);
-    - runs the stage's iterations fully fused in VMEM with per-lane
-      operators (:func:`blf_tpu.ops.pallas.admm_lane.admm_lane_stage`,
+    - per stage, builds ``K(s) = P̄ + σI + s·ĀᵀρĀ`` (batched GEMM) and
+      inverts it (:func:`blf_tpu.ops.linalg.spd_inverse`);
+    - runs the stage's iterations in one kernel launch with each lane's
+      operators held on chip
+      (:func:`blf_tpu.ops.pallas.admm_lane.admm_lane_stage`,
       v-space recursion — the σ·x proximal term is dropped exactly as in
       :func:`solve_qp_factored`, shifting the fixed point by ~σ‖x‖ ≈ 1e-7);
     - adapts the per-lane ρ multiplier ``s`` at stage boundaries with the
@@ -389,10 +380,10 @@ def solve_qp_lanes(
 
     Semantics, warm starts, and diagnostics mirror :func:`solve_qp`;
     ``converged``/residuals are computed in the ORIGINAL scaling. Exactly
-    one leading batch axis is required (the kernel pads it to lane blocks).
+    one leading batch axis is required (one kernel program per lane).
     """
+    from blf_tpu.ops.linalg import spd_inverse
     from blf_tpu.ops.pallas.admm_lane import admm_lane_stage
-    from blf_tpu.ops.pallas.linalg import cholesky_inverse_lane
 
     P, q, A = jnp.asarray(P), jnp.asarray(q), jnp.asarray(A)
     l, u = jnp.asarray(l), jnp.asarray(u)
@@ -462,21 +453,14 @@ def solve_qp_lanes(
     v = z + y / (s * base_rho)
 
     At = jnp.swapaxes(A, -1, -2)
-    A_t = jnp.transpose(A, (1, 2, 0))                        # (m, n, B)
-    q_t, l_t, u_t = q.T, l.T, u.T
     eye_n = jnp.eye(n, dtype=dtype)
 
     def run_stage(v, s, iters):
         rho_lane = s * base_rho                              # (B, m)
         K = P + sigma * eye_n + _einsum(
             "bnm,bm,bmk->bnk", At, rho_lane, A)
-        Kinv = cholesky_inverse_lane(K, interpret=interpret)
-        Kinv_t = jnp.transpose(Kinv, (1, 2, 0))              # (n, n, B)
-        v_t, x_t = admm_lane_stage(
-            v.T, rho_lane.T, A_t, Kinv_t, q_t, l_t, u_t,
-            iters=iters, alpha=alpha, interpret=interpret,
-        )
-        return v_t.T, x_t.T                                  # (B, m), (B, n)
+        return admm_lane_stage(v, rho_lane, A, spd_inverse(K), q, l, u,
+                               iters=iters, alpha=alpha)     # (B, m), (B, n)
 
     check_every = max(1, min(check_every, iterations))
     n_stages = max(1, -(-iterations // check_every))
@@ -578,8 +562,7 @@ def solve_qp_shared(
     y0: Optional[jnp.ndarray] = None,
     s0: Optional[jnp.ndarray] = None,
     unroll: int = 1,
-    backend: str = "xla",
-    refine: Optional[bool] = None,
+    refine: bool = True,
     polish_iters: int = 0,
     polish_scale: float = 0.1,
 ) -> QPSolution:
@@ -589,7 +572,7 @@ def solve_qp_shared(
     batching"): when every lane solves the same transcription (same horizon,
     same polygons) with different initial states/references, the KKT system
     is factored ONCE and every per-iteration product becomes a dense
-    ``(B, ·) × (·, ·)`` GEMM on the MXU. Convenience wrapper around
+    ``(B, ·) × (·, ·)`` GEMM. Convenience wrapper around
     :func:`factor_shared_qp` + :func:`solve_qp_factored` — hoist the
     factorization yourself when (P, A) survive across control ticks.
 
@@ -610,7 +593,7 @@ def solve_qp_shared(
     return solve_qp_factored(
         factors, q, l, u, iterations=iterations, alpha=alpha,
         eps_abs=eps_abs, eps_rel=eps_rel, check_every=check_every,
-        x0=x0, y0=y0, s0=s0, unroll=unroll, backend=backend, refine=refine,
+        x0=x0, y0=y0, s0=s0, unroll=unroll, refine=refine,
         polish_iters=polish_iters, polish_scale=polish_scale,
     )
 
@@ -626,8 +609,8 @@ class SharedQPFactors(NamedTuple):
         ``K(s)⁻¹ = W diag(1/(1 + s·d)) Wᵀ``  for EVERY ``s`` at once —
 
     continuous per-lane ρ adaptation at shared-factorization cost: the
-    per-iteration solve is two ``(B, n) × (n, n)`` GEMMs and a VPU scale (the
-    TPU-native replacement for per-lane refactorization, which no batched
+    per-iteration solve is two ``(B, n) × (n, n)`` GEMMs and an elementwise
+    scale (the replacement for per-lane refactorization, which no batched
     solver can afford, and for the discrete ρ-ladder this design supersedes).
     All members are in the Ruiz-equilibrated frame.
     """
@@ -734,8 +717,7 @@ def solve_qp_factored(
     y0: Optional[jnp.ndarray] = None,
     s0: Optional[jnp.ndarray] = None,
     unroll: int = 1,
-    backend: str = "xla",
-    refine: Optional[bool] = None,
+    refine: bool = True,
     s_min: float = 1e-4,
     s_max: float = 1e4,
     polish_iters: int = 0,
@@ -751,21 +733,17 @@ def solve_qp_factored(
     ``v = z_relaxed + y/ρ`` (``z = clip(v, l, u)``, ``y = ρ(v − z)`` are
     recovered views): two GEMMs per iteration (contractions of size m and n
     against ``G2 = Ā·W``) instead of four — the (n, n) spectral-basis
-    products appear only at stage boundaries and in the final unscale. Both
-    backends (XLA and pallas) run this same recursion.
+    products appear only at stage boundaries and in the final unscale.
 
     Per-lane continuous adaptive ρ: each lane carries a scalar ``s`` moved
     every ``check_every`` iterations by its own primal/dual residual ratio
     (OSQP rule with ×5 hysteresis); the spectral form evaluates every lane's
-    ``K(s)⁻¹`` with two shared GEMMs. ``refine`` adds one iterative-refinement
-    pass per x-solve, which the f32 eigenbasis needs to reach default
-    tolerances on ill-conditioned lanes (see :func:`factor_shared_qp`). It
-    defaults to True on the XLA backend and is NOT supported by the fused
-    kernels: ``backend="pallas"`` (``"pallas_f32"`` for 6-pass f32 matmuls
-    instead of 3-pass split-f32) is the loose-tolerance throughput path
-    (residuals floor ~1e-6 relative, warm-started fleets converge fully).
-    Passing ``refine=True`` explicitly with a pallas backend warns and
-    records the downgrade in ``QPSolution.refined``.
+    ``K(s)⁻¹`` with two shared GEMMs. ``refine=True`` (default) adds one
+    iterative-refinement pass per x-solve, which the f32 eigenbasis needs to
+    reach default tolerances on ill-conditioned lanes (see
+    :func:`factor_shared_qp`). ``refine=False`` is the throughput path: two
+    GEMMs per iteration instead of six (residuals floor ~1e-6 relative;
+    warm-started fleets converge fully).
 
     ``polish_iters > 0`` appends a ρ-continuation dual polish: a final stage
     of that many iterations at ``s·polish_scale``. In f32 the dual iterate's
@@ -779,20 +757,6 @@ def solve_qp_factored(
     f = factors
     n, m = f.P_s.shape[-1], f.A_s.shape[-2]
     dtype = f.P_s.dtype
-    is_pallas = backend in ("pallas", "pallas_split", "pallas_f32")
-    if refine and is_pallas:
-        import warnings
-
-        warnings.warn(
-            "refine=True is not supported by the fused pallas ADMM kernel; "
-            "running without iterative refinement (see QPSolution.refined). "
-            "Use backend='xla' for refined solves.",
-            stacklevel=2,
-        )
-    effective_refine = (not is_pallas) if refine is None else (
-        refine and not is_pallas
-    )
-    refine = effective_refine
     q = jnp.asarray(q)
     l, u = jnp.asarray(l), jnp.asarray(u)
     q_orig = q
@@ -842,23 +806,6 @@ def solve_qp_factored(
     def _Ax_of(tau):
         return (_einsum("...n,mn->...m", tau, A) if refine
                 else _einsum("...n,nm->...m", tau, G2.T))
-
-    use_pallas = (
-        backend in ("pallas", "pallas_split", "pallas_f32")
-        and len(batch) == 1
-        and batch[0] % 256 == 0
-    )
-    if use_pallas:
-        matmul = {"pallas": "delta", "pallas_split": "split",
-                  "pallas_f32": "f32"}[backend]
-        return _solve_factored_pallas_t(
-            f, q_orig, qb, lb, ub, v, tau, s, gq, G2,
-            iterations=iterations, alpha=alpha, eps_abs=eps_abs,
-            eps_rel=eps_rel, check_every=check_every, matmul=matmul,
-            s_min=s_min, s_max=s_max, polish_iters=polish_iters,
-            polish_scale=polish_scale, effective_refine=effective_refine,
-            unroll=unroll,
-        )
 
     def run_stage(v, tau, s, iters):
         rho_lane = s * f.base_rho                          # (batch, m)
@@ -975,131 +922,7 @@ def solve_qp_factored(
     converged = (r_prim < prim_tol) & (r_dual < dual_tol)
     objective = 0.5 * jnp.sum(x * Px, axis=-1) + jnp.sum(q_orig * x, axis=-1)
     return QPSolution(x, y, z, r_prim, r_dual, converged, objective,
-                      rho_scale=s, refined=jnp.asarray(effective_refine))
-
-
-@_f32_matmuls
-def _solve_factored_pallas_t(
-    f: SharedQPFactors,
-    q_orig, qb, lb, ub, v, tau, s, gq, G2,
-    *,
-    iterations, alpha, eps_abs, eps_rel, check_every, matmul,
-    s_min, s_max, polish_iters, polish_scale, effective_refine,
-    unroll: int = 1,
-):
-    """Fused-kernel path of :func:`solve_qp_factored`, batch-minor layout.
-
-    All per-lane arrays are carried TRANSPOSED — ``(rows, B)`` with the
-    batch as the 128-wide lane dimension — across the whole stage scan, so
-    the layout conversion happens exactly once per solve (see the layout
-    discussion in :mod:`blf_tpu.ops.pallas.admm`). Stage-boundary residual
-    checks and ρ adaptation run the same math as the XLA path, transposed.
-    """
-    from blf_tpu.ops.pallas.admm import admm_stage_t
-
-    n, m = f.P_s.shape[-1], f.A_s.shape[-2]
-    A, P = f.A_s, f.P_s
-    B = v.shape[0]
-
-    # one-time layout conversion: every per-lane array becomes (rows, B)
-    vT = v.T
-    tauT = tau.T
-    sT = s.T                                         # (1, B)
-    gqT = gq.T                                       # (n, B)
-    lT = jnp.broadcast_to(lb.T, (m, B))
-    uT = jnp.broadcast_to(ub.T, (m, B))
-    qT = qb.T                                        # (n, B)
-    rho_col = f.base_rho[:, None]                    # (m, 1)
-
-    # unroll <= 1 keeps the kernel's tuned default (8); larger values are an
-    # explicit request (e.g. the h=32 headline bench runs 16 — SOL.md sweep)
-    kernel_unroll = {} if unroll <= 1 else {"unroll": unroll}
-
-    def run_stage(vT, tauT, sT, iters):
-        return admm_stage_t(
-            vT, tauT, sT, gqT, lT, uT, G2, f.d, f.base_rho,
-            iters=iters, alpha=alpha, matmul=matmul, **kernel_unroll,
-        )
-
-    check_every = max(1, min(check_every, iterations))
-    n_stages = max(1, -(-iterations // check_every))
-
-    def stage(carry, _):
-        vT, tauT, sT = carry
-        vT, tauT = run_stage(vT, tauT, sT, check_every)
-        z = jnp.clip(vT, lT, uT)                     # (m, B)
-        y = (sT * rho_col) * (vT - z)
-        x = _einsum("nk,k...->n...", f.W, tauT)      # (n, B)
-        Ax = _einsum("mn,n...->m...", G2, tauT)
-        Px_ = _einsum("nk,k...->n...", P, x)
-        Aty_ = _einsum("nm,m...->n...", A.T, y)
-        rp = jnp.max(jnp.abs(Ax - z), axis=0) / jnp.maximum(
-            jnp.maximum(jnp.max(jnp.abs(Ax), 0), jnp.max(jnp.abs(z), 0)),
-            1e-12,
-        )
-        rd = jnp.max(jnp.abs(Px_ + qT + Aty_), axis=0) / jnp.maximum(
-            jnp.maximum(jnp.max(jnp.abs(Px_), 0),
-                        jnp.maximum(jnp.max(jnp.abs(Aty_), 0),
-                                    jnp.max(jnp.abs(qT), 0))), 1e-12
-        )
-        # OSQP per-lane ρ rule with hysteresis (see solve_qp_factored)
-        ratio = jnp.sqrt(rp / jnp.maximum(rd, 1e-12))[None, :]
-        move = (ratio > 5.0) | (ratio < 0.2)
-        s_new = jnp.where(move, jnp.clip(sT * ratio, s_min, s_max), sT)
-        vT = z + (sT / s_new) * (vT - z)
-        return (vT, tauT, s_new), None
-
-    (vT, tauT, sT), _ = jax.lax.scan(
-        stage, (vT, tauT, sT), None, length=n_stages
-    )
-
-    qTo = q_orig.T if q_orig.ndim == 2 else q_orig[:, None]
-
-    def _finish(vT, tauT, rho_lane):
-        """Recover, unscale, diagnose in the ORIGINAL problem (transposed)."""
-        x = _einsum("nk,k...->n...", f.W, tauT)
-        z = jnp.clip(vT, lT, uT)
-        y = rho_lane * (vT - z)
-        x = f.D[:, None] * x
-        y = f.E[:, None] * y / f.c
-        z = z / f.E[:, None]
-        Ax = _einsum("mn,n...->m...", f.A_orig, x)
-        r_prim = jnp.max(jnp.abs(Ax - z), axis=0)
-        Px = _einsum("nk,k...->n...", f.P_orig, x)
-        Aty = _einsum("nm,m...->n...", f.A_orig.T, y)
-        r_dual = jnp.max(jnp.abs(Px + qTo + Aty), axis=0)
-        prim_tol = eps_abs + eps_rel * jnp.maximum(
-            jnp.max(jnp.abs(Ax), axis=0), jnp.max(jnp.abs(z), axis=0)
-        )
-        dual_tol = eps_abs + eps_rel * jnp.maximum(
-            jnp.maximum(jnp.max(jnp.abs(Px), axis=0),
-                        jnp.max(jnp.abs(Aty), axis=0)),
-            jnp.max(jnp.abs(qTo), axis=0),
-        )
-        return x, z, y, r_prim, r_dual, prim_tol, dual_tol, Px
-
-    cand = _finish(vT, tauT, sT * rho_col)
-    if polish_iters > 0:
-        # ρ-continuation dual polish, accepted per lane only where it
-        # lowered the tolerance-normalized residual score — see
-        # solve_qp_factored's docstring
-        s_pol = jnp.clip(sT * jnp.asarray(polish_scale, vT.dtype),
-                         s_min, s_max)
-        z = jnp.clip(vT, lT, uT)
-        v_p = z + (sT / s_pol) * (vT - z)
-        v_p, tau_p = run_stage(v_p, tauT, s_pol, polish_iters)
-        pol = _finish(v_p, tau_p, s_pol * rho_col)
-        score = lambda d: jnp.maximum(d[3] / d[5], d[4] / d[6])
-        better = score(pol) < score(cand)                  # (B,)
-        pick = lambda a, b: jnp.where(
-            better[None, :] if a.ndim == 2 else better, b, a)
-        cand = tuple(pick(a, b) for a, b in zip(cand, pol))
-
-    x, z, y, r_prim, r_dual, prim_tol, dual_tol, Px = cand
-    converged = (r_prim < prim_tol) & (r_dual < dual_tol)
-    objective = 0.5 * jnp.sum(x * Px, axis=0) + jnp.sum(qTo * x, axis=0)
-    return QPSolution(x.T, y.T, z.T, r_prim, r_dual, converged, objective,
-                      rho_scale=sT.T, refined=jnp.asarray(effective_refine))
+                      rho_scale=s, refined=jnp.asarray(refine))
 
 
 def shard_factors_rows(f: SharedQPFactors, index, num_shards: int):
@@ -1148,7 +971,7 @@ def solve_qp_factored_rowsharded(
     their shard, so a transcription wider than one device's memory runs
     across the axis at one (B, n)-collective per iteration of latency cost.
     Use when ``m`` (contact/constraint count × horizon) outgrows a single
-    device; the single-device fused-kernel path is faster below that.
+    device; the single-device path is faster below that.
 
     Returns a :class:`QPSolution` whose ``x``/residuals/``converged`` are
     replicated across the axis and whose ``y``/``z`` are the local rows.

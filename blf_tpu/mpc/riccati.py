@@ -11,7 +11,7 @@ provides the linear-quadratic backbone both ways:
 - ``parallel=True``: the associative-scan formulation of Särkkä &
   García-Fernández ("Temporal Parallelization of Dynamic Programming and
   Linear Quadratic ..."), O(log T) depth — the building block for sharding a
-  long horizon across a mesh axis (ICI block exchange), enabled single-chip
+  long horizon across a mesh axis (block exchange), enabled single-device
   first exactly as SURVEY.md §7 plans ("gate behind a flag; serial scan is
   the fallback");
 - :func:`solve_lqr_sharded`: the horizon SHARDED over a mesh axis — each
@@ -20,7 +20,7 @@ provides the linear-quadratic backbone both ways:
   and the O(P)-element cross-block prefix runs redundantly per device. This
   is the framework's ring-attention analogue: communication is two tiny
   collectives of (nx, nx) blocks per solve, independent of the local horizon
-  length, riding ICI when the mesh axis is an ICI ring.
+  length.
 
 Problem: ``min Σ_k ½ xₖᵀQₖxₖ + ½ uₖᵀRₖuₖ  +  ½ x_TᵀQ_T x_T``
 subject to ``x_{k+1} = Fₖ xₖ + Lₖ uₖ + cₖ``.
@@ -240,7 +240,7 @@ def solve_lqr_sharded(
     ``shard_map``. Per solve, cross-device traffic is exactly:
 
     1. one ``all_gather`` of each block's composed value element — P elements
-       of ~(nx, nx) floats (the "ICI block exchange");
+       of ~(nx, nx) floats (the "block exchange");
     2. one ``ppermute`` halo shifting each block's first (P_k, p_k) to the
        previous device (next-knot values for the gain computation);
     3. one ``all_gather`` of each block's composed closed-loop affine map for
@@ -254,8 +254,7 @@ def solve_lqr_sharded(
 
     Reference parity note: the reference integrates time strictly serially
     (``FixedStepIntegrator.tpp:48-61``); this capability has no counterpart
-    there and exists because a TPU pod makes horizon-parallelism free to
-    ride ICI.
+    there; it spreads one long horizon over the cards of a mesh.
     """
     from jax import shard_map
     from jax.sharding import PartitionSpec as P

@@ -3,7 +3,7 @@
 The north-star workload (BASELINE.json) is the upstream
 ``TimeVaryingDCMPlanner`` class of problems: *nonlinear* optimal-control
 transcriptions that the reference solves with CasADi/Ipopt on CPU. This module
-is the TPU-native replacement: a shooting SQP whose every stage is a fixed
+is the accelerator-native replacement: a shooting SQP whose every stage is a fixed
 -shape, fixed-iteration JAX program —
 
 - **Gauss-Newton quadraticization** of nonlinear least-squares running and

@@ -72,6 +72,7 @@ from blf_tpu.ops.integrators import (
     integrate_rosenbrock,
     rosenbrock_operator,
 )
+from blf_tpu.ops.linalg import solve_psd_small, spd_inverse
 from blf_tpu.ops.precision import f32_matmuls
 from blf_tpu.ops.lie import so3_log
 from blf_tpu.utils.status import SolverStatus, nan_quarantine
@@ -127,12 +128,9 @@ class StackConfig(NamedTuple):
     #   1e-5 in f64, 1e-4 in f32 (the realistic single-precision residual
     #   floor of the per-lane ADMM — same dtype reasoning as solve_qp's
     #   rho_eq_scale default)
-    mpc_backend: str = "xla"        # fleet path only: DCM-MPC QP backend —
-    #   "pallas" routes the shared-factor solve through the fused batch-
-    #   minor kernel (blf_tpu.ops.pallas.admm; needs batch % 256 == 0)
     wbc_backend: str = "xla"        # fleet path only: WBC QP backend —
     #   "pallas" routes the per-lane solve through the fused lane kernel
-    #   (blf_tpu.ops.pallas.admm_lane + the batch-minor Cholesky kernel)
+    #   (blf_tpu.ops.pallas.admm_lane)
     wbc_scaling_iters: int = 10     # Ruiz equilibration rounds per WBC
     #   solve. The solver default (10, OSQP-style) is conservative for the
     #   100 Hz loop where consecutive problems are near-identical; the
@@ -142,8 +140,7 @@ class StackConfig(NamedTuple):
     #   M(q)ν̇ = known with a per-TICK mass-matrix inverse + 2 refinement
     #   passes against the exact per-substep M (rel. error ~‖ΔM/M‖³ ≈ 1e-6
     #   at ≲1 % joint motion per tick) instead of a per-evaluation batched
-    #   Cholesky — the r5 profile found XLA's batched Cholesky at ~90 % of
-    #   the plant substep cost. The production bench turns this on.
+    #   Cholesky. The production bench turns this on.
     ros_op_stiff: bool = False      # fleet path only (requires
     #   plant_lagged_minv): build the ROS2-W stage operator by
     #   differentiating ONLY the stiff sole-ground path (frozen J_cᵀ,
@@ -590,13 +587,10 @@ def make_fleet_stack_step(
     pushes), while the references/polygons are shared.
 
     Why a second entry point: under ``vmap`` the two QP solves are per-lane
-    programs, which pins them to the XLA batched path — chains of tiny
-    lane-major matvecs plus batched Cholesky refactorizations that the r4
-    judge profiled at ~60 % of the fleet tick. Here the solves are single
-    BATCHED calls, so ``config.mpc_backend``/``config.wbc_backend`` can
-    route them through the fused kernels: the shared-factor batch-minor
-    ADMM for the DCM-MPC (every lane shares one transcription) and the
-    per-lane-operator lane kernel + batch-minor Cholesky for the WBC.
+    programs, which pins them to the XLA batched path. Here the solves are
+    single BATCHED calls: the DCM-MPC runs the shared-factor fleet solve
+    (every lane shares one transcription), and ``config.wbc_backend`` can
+    route the WBC through the fused per-lane-operator kernel.
     Kinematics, plant physics, and estimators stay vmapped (elementwise
     per-lane programs batch fine under vmap). Equivalence with the vmapped
     step is pinned by ``tests/test_control_stack.py``.
@@ -636,7 +630,7 @@ def make_fleet_stack_step(
             lipm, config.mpc_dt, dcm0, com0[:, :2], dcm_ref, zmp_ref,
             poly_A, poly_b, iterations=config.mpc_iterations,
             warm_start=stack.warm_zmp, warm_start_dual=stack.warm_y,
-            s0=stack.warm_s, shared=True, backend=config.mpc_backend,
+            s0=stack.warm_s, shared=True,
         )
 
         height_ref = jnp.asarray(
@@ -650,15 +644,13 @@ def make_fleet_stack_step(
             [true_push_xy, jnp.zeros((B, 4), dtype)], axis=-1)       # (B, 6)
 
         if config.plant_lagged_minv:
-            # per-TICK plant mass-matrix inverse through the batch-minor
-            # Cholesky kernel; fdyn refines against the exact per-substep M
-            from blf_tpu.ops.pallas.linalg import cholesky_inverse_lane
-
+            # per-TICK plant mass-matrix inverse; fdyn refines against the
+            # exact per-substep M
             M_tick = jax.vmap(
                 lambda p: rb.mass_matrix(tree, p.base_position,
                                          p.base_rotation, p.joint_positions)
             )(stack.plant)
-            minv_tick = cholesky_inverse_lane(M_tick)                # (B,ν,ν)
+            minv_tick = spd_inverse(M_tick)                          # (B,ν,ν)
             minv_axis = 0
         else:
             minv_tick = None
@@ -705,7 +697,7 @@ def make_fleet_stack_step(
 
         def est_lane(obs, plant_next, torques):
             # per-lane assembly only; the tiny (6, 6) attribution solve is
-            # hoisted out of the vmap onto the batch-minor Cholesky kernel
+            # hoisted out of the vmap as one unrolled batched solve
             from blf_tpu.estimators.wrench_observer import (
                 wrench_normal_equations)
 
@@ -776,14 +768,15 @@ def make_fleet_stack_step(
                     integrate_lane, in_axes=(0, 0, 0, minv_axis))(
                     plant, torques, push_wrench, minv_tick)
 
-            from blf_tpu.ops.pallas.linalg import spd_solve_lane
-
             obs_next, G_est, Jr_est = jax.vmap(est_lane)(
                 obs, plant_next, torques)
-            push_meas = spd_solve_lane(G_est, Jr_est)[:, :2]
+            push_meas = solve_psd_small(G_est, Jr_est)[:, :2]
+            # the carry's dtype is authoritative (an f32 fleet under x64)
+            rls_p = jax.tree_util.tree_map(
+                lambda a: jnp.asarray(a, dtype), rls_params)
             est = jax.vmap(
                 lambda th, cv, pm: rls_step(
-                    rls_params, RLSState(th, cv),
+                    rls_p, RLSState(th, cv),
                     jnp.eye(2, dtype=dtype), pm)
             )(theta, cov, push_meas)
             s_next = sol.rho_scale

@@ -1,6 +1,6 @@
 // Native host runtime: batch contact-schedule lowering + 2-D convex hulls.
 //
-// The host-side hot path of the TPU framework: before a scenario sweep
+// The host-side hot path of the framework: before a scenario sweep
 // launches, B scenario contact schedules (contact windows per effector) must
 // be lowered to dense per-knot activation masks / foothold poses, and the
 // per-knot support polygons baked to half-spaces. Pure-Python lowering is

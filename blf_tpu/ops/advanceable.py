@@ -4,7 +4,7 @@ The reference's ``Advanceable<T>`` interface (`/root/reference/src/System/
 include/BipedalLocomotion/System/Advanceable.h:24-46`) is a mutable
 ``get()/isValid()/advance()`` triple: call ``advance()`` to move hidden
 member state one tick, ``get()`` to read the output, ``isValid()`` to learn
-whether it worked. The TPU-native realization (SURVEY.md §7 "streaming
+whether it worked. The accelerator-native realization (SURVEY.md §7 "streaming
 iterator protocol") is the **step convention**::
 
     step(carry, *inputs) -> (carry', output)

@@ -1,6 +1,6 @@
 """Fixed-step ODE integrators over arbitrary pytree states.
 
-TPU-native re-design of the reference's integrator stack
+Accelerator-native re-design of the reference's integrator stack
 (``System/Integrator.h:28-74``, ``FixedStepIntegrator.tpp:22-72``,
 ``ForwardEuler.tpp:18-49``): instead of a class hierarchy mutating member
 buffers, a dynamics function is a **pure function**
@@ -106,7 +106,7 @@ def integrate(
       method: one of ``STEP_FUNCTIONS``.
       save_trajectory: if True also return the state trajectory including
         ``x0`` (leaves get a leading ``num_steps + 1`` axis).
-      unroll: scan unroll factor (TPU pipelining knob).
+      unroll: scan unroll factor.
 
     Returns:
       ``x_final`` or ``(x_final, trajectory)``.
@@ -154,7 +154,7 @@ def integrate_rosenbrock(
 
     The reference integrates its stiff contact-closed dynamics with small
     explicit steps (``FixedStepIntegrator.tpp:48-61`` — the only stability
-    lever it has is ``dT``). On TPU that strategy is ruinous: each explicit
+    lever it has is ``dT``). On an accelerator that strategy is ruinous: each explicit
     substep of an articulated plant is a long serial chain of small ops, and
     the sole-ground spring–damper modes (|λ| ≈ 3e3/s on a 0.6 kg foot) force
     sub-millisecond steps. This method instead treats those modes through
@@ -170,7 +170,7 @@ def integrate_rosenbrock(
         x⁺ = x + dt·(3 k₁ + k₂)/2      (γ = 1 + 1/√2 → R(∞) = 0, order 2)
 
     so each substep costs two dynamics evaluations plus two (D, D) matvecs —
-    MXU/VPU work — instead of four RK4 evaluations at a ~10× smaller stable
+    batched work — instead of four RK4 evaluations at a ~10× smaller stable
     ``dt``. Freezing J across the call (a "W-method") preserves the linear
     stability of the stiff contact modes, which change on pose timescales
     (~cm of foot travel), not per-substep; accuracy vs a fine-step RK4

@@ -138,7 +138,7 @@ def rot_to_quat(rot: jnp.ndarray) -> jnp.ndarray:
     """Rotation matrix → unit quaternion (w, x, y, z), w ≥ 0.
 
     Branchless Shepperd-style construction (max-component select) so it is
-    ``vmap``/TPU friendly.
+    ``vmap``/accelerator friendly.
     """
     m = rot
     t0 = 1.0 + m[..., 0, 0] + m[..., 1, 1] + m[..., 2, 2]

@@ -1,30 +1,28 @@
-"""Batched small-matrix linear algebra as pure XLA elementwise ops.
+"""Batched small-matrix linear algebra.
 
-TPU lowers ``jnp.linalg.solve``/``inv``/``cholesky`` to linalg custom calls
-that process one (tiny) matrix at a time; on a large batch of small systems
-they are latency-bound, not bandwidth-bound. Measured on v5e: a
-``jnp.linalg.solve`` over a ``(16384, 2, 2)`` batch costs ~11.5 ms/call,
-while the same solve unrolled over the *static* small dimension runs as a
-handful of fused VPU ops at HBM speed (~0.1 ms) — a >100× gap, and the
-difference between the fleet tick being estimator-bound or solver-bound.
+- :func:`cholesky_small` / :func:`solve_psd_small` unroll Cholesky and the
+  two triangular solves over a static small ``m`` (the innovation /
+  measurement dimension — 2–8 in every framework use), vectorizing over
+  arbitrary leading batch axes: a handful of fused elementwise ops per
+  solve, no linalg library call and no data-dependent control flow, so safe
+  inside ``jit``/``scan``/``shard_map`` on any backend.
+- :func:`spd_inverse` inverts a batch of larger SPD matrices (the plant's
+  per-tick mass matrix, 29×29; the whole-body QP's per-stage KKT matrix,
+  64×64) through the batched factorization routines XLA calls on the
+  device.
 
-These helpers unroll Cholesky factorization and the two triangular solves
-over the static ``m`` (the innovation/measurement dimension — 2–8 in every
-framework use), vectorizing over arbitrary leading batch axes. No custom
-calls, no data-dependent control flow: safe inside ``jit``/``scan``/
-``shard_map`` and on any backend.
-
-The reference solves the same systems with dense ``Eigen`` inverses on one
-matrix at a time (``RecursiveLeastSquare.cpp:120-123``); batching over
-scenarios is this framework's redesign, and this module is what makes the
-batch free on TPU.
+The reference solves the same systems with dense ``Eigen`` factorizations
+on one matrix at a time (``RecursiveLeastSquare.cpp:120-123``,
+``FloatingBaseSystemDynamics.cpp:237-244``); batching over scenarios is this
+framework's redesign.
 """
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
-__all__ = ["cholesky_small", "solve_psd_small", "solve_psd"]
+__all__ = ["cholesky_small", "solve_psd_small", "solve_psd", "spd_inverse"]
 
 # Above this size the O(m³) unrolled op count stops paying for itself and
 # XLA's custom call wins; every in-framework consumer is far below it.
@@ -52,8 +50,8 @@ def cholesky_small(S: jnp.ndarray, *, eps: float = 0.0) -> jnp.ndarray:
     """Lower Cholesky factor of a batch of small PSD matrices, unrolled.
 
     ``S``: (…, m, m) with static ``m`` ≤ ~8. Matches
-    ``jnp.linalg.cholesky`` (up to the ``eps`` pivot floor) without the
-    TPU custom call.
+    ``jnp.linalg.cholesky`` (up to the ``eps`` pivot floor) without a
+    linalg library call.
     """
     m = S.shape[-1]
     L = _chol_entries(S, eps)
@@ -97,12 +95,27 @@ def solve_psd_small(S: jnp.ndarray, B: jnp.ndarray, *,
 
 def solve_psd(S: jnp.ndarray, B: jnp.ndarray, *, eps: float = 0.0,
               max_unrolled: int = MAX_UNROLLED) -> jnp.ndarray:
-    """PSD solve that picks the TPU-fast path by static size.
+    """PSD solve that picks the unrolled path by static size.
 
     Small static ``m`` → :func:`solve_psd_small` (unrolled, batch-free);
-    larger ``m`` → ``jnp.linalg.solve`` (custom call, fine at sizes where
-    compute dominates dispatch).
+    larger ``m`` → ``jnp.linalg.solve`` (library call, fine at sizes where
+    compute dominates launch cost).
     """
     if S.shape[-1] <= max_unrolled:
         return solve_psd_small(S, B, eps=eps)
+    if B.ndim == S.ndim - 1:                       # batched vector rhs
+        return jnp.linalg.solve(S, B[..., None])[..., 0]
     return jnp.linalg.solve(S, B)
+
+
+def spd_inverse(K: jnp.ndarray) -> jnp.ndarray:
+    """Inverse of a batch of SPD matrices ``K`` (…, n, n).
+
+    Batched Cholesky, then ``cho_solve`` against the identity. A lane whose
+    matrix is not SPD (or holds NaN) comes back NaN without touching its
+    neighbours — the callers' per-lane status and quarantine absorb it.
+    """
+    n = K.shape[-1]
+    L = jnp.linalg.cholesky(K)
+    eye = jnp.broadcast_to(jnp.eye(n, dtype=K.dtype), K.shape)
+    return jax.scipy.linalg.cho_solve((L, True), eye)

@@ -1,1 +1,1 @@
-"""Pallas TPU kernels for the framework's hot ops."""
+"""Pallas kernels for the framework's hot ops (GPU, Triton route)."""

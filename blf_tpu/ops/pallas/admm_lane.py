@@ -1,146 +1,151 @@
-"""Fused per-lane ADMM stage — Pallas TPU kernel (heterogeneous operators).
+"""Fused per-lane ADMM stage — Pallas kernel on the Triton route.
 
-The shared-matrix kernel (:mod:`blf_tpu.ops.pallas.admm`) requires every
-lane to share one (P, A): right for scenario fleets of one transcription,
-impossible for the whole-body QP of the control stack (BASELINE config 4),
-where P and A carry each lane's OWN mass matrix and contact Jacobians
-(reference dynamics ``FloatingBaseSystemDynamics.cpp:102-251`` — one robot
-state per lane). The XLA path for that shape is a chain of batched tiny
-matvecs + batched Cholesky refactorizations: judge-profiled at ~326 ms of
-the 549 ms config-4 fleet tick (B=256).
+The whole-body QP of the control stack (BASELINE config 4) gives every lane
+its OWN cost and constraint matrices (its own mass matrix and contact
+Jacobians — reference dynamics ``FloatingBaseSystemDynamics.cpp:102-251``),
+so there is no shared GEMM to batch. XLA runs each ADMM iteration of that
+shape as several launches of small batched matvecs, re-reading every lane's
+operators from device memory each time.
 
-This kernel runs the v-space ADMM recursion with **per-lane operators
-resident in VMEM** across all iterations of a stage:
+This kernel runs all iterations of one stage of the v-space ADMM recursion
 
     z  = clip(v, l, u)
     w  = ρ ⊙ (2z − v)                      ( = ρz − y )
     x̃  = K⁻¹ (Aᵀw − q)                     (K = P + σI + AᵀρA, prefactored)
     v += α (A x̃ − z)
 
-Layout: batch-minor everywhere — every vector is ``(rows, B)`` with the
-lane block in the 128-wide minor dimension, and the per-lane matrices are
-``(rows, cols, B)`` stacks whose leading index is unrolled: each step is a
-full-width (cols, B) VPU op across the whole lane block (row read →
-broadcast-FMA for the expansion product, multiply + sublane-reduce for the
-contractions). No MXU: with one distinct matrix per lane there is no
-shared GEMM to tile and the arithmetic intensity is 1 — the kernel is
-VMEM-bandwidth-bound (A twice + K⁻¹ once ≈ 7.7 MB/iteration/block), which
-is exactly the regime where keeping the operators on-chip across the whole
-stage wins: the XLA path re-streams them from HBM every iteration and pays
-per-op dispatch on every matvec.
+in ONE launch, one program per lane: the lane's ``A`` (rows padded to a
+power of two, 128 for the WBC's m≈86 × n=64) and ``K⁻¹`` (64×64) — about
+48 KB in f32 — are loaded once and stay on the SM (registers / shared
+memory) for every iteration. The matvecs are f32 broadcast-multiplies plus
+reductions, never ``dot``: no tensor-core (TF32) products, so the fixed
+point matches the XLA v-space recursion to f32 rounding.
 
-Accuracy: pure f32 VPU arithmetic — no bf16 MXU passes at all, so unlike
-the shared kernel there is no split-precision contract; the fixed point
-matches the XLA v-space recursion to f32 rounding.
+Platforms: the kernel is compiled for the GPU (``backend="triton"``) and
+runs in Pallas interpret mode on the CPU, where the test suite checks it;
+lowering for any other platform raises.
 
 The consuming solver (``blf_tpu.mpc.qp.solve_qp`` with
-``backend="pallas"``) factors K once per stage through
-:func:`blf_tpu.ops.pallas.linalg.cholesky_inverse_lane` and runs
-stage-boundary ρ adaptation / diagnostics in XLA, mirroring
-``solve_qp_factored``'s structure.
+``backend="pallas"``) inverts K once per stage with
+:func:`blf_tpu.ops.linalg.spd_inverse` and runs stage-boundary ρ adaptation
+and diagnostics in XLA.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import Tuple
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
-__all__ = ["admm_lane_stage"]
+__all__ = ["admm_lane_stage", "admm_lane_stage_reference"]
+
+#: warps per lane program (one lane's operators spread over 4 × 32 threads)
+NUM_WARPS = 4
 
 
 def _lane_kernel(v_ref, rho_ref, A_ref, Kinv_ref, q_ref, l_ref, u_ref,
-                 v_out, x_out, acc_ref, av_ref,
-                 *, iters: int, alpha: float, m: int, n: int):
-    """One ADMM stage for a lane block; A_ref (m, n, B), Kinv_ref (n, n, B)."""
+                 v_out, x_out, *, iters: int, alpha: float):
+    """One ADMM stage for one lane; A_ref (m, n), Kinv_ref (n, n)."""
+    A = A_ref[...]
+    Kinv = Kinv_ref[...]
+    rho, q, l, u = rho_ref[...], q_ref[...], l_ref[...], u_ref[...]
 
-    def body(_, v):
-        z = jnp.clip(v, l_ref[:], u_ref[:])                  # (m, B)
-        w = rho_ref[:] * (2.0 * z - v)                       # (m, B)
-        # rhs = Aᵀw − q: expansion — m broadcast-FMA steps of (n, B)
-        acc_ref[:] = -q_ref[:]
-        for j in range(m):
-            acc_ref[:] += A_ref[j] * w[j:j + 1, :]
-        rhs = acc_ref[:]                                     # (n, B)
-        # x̃ = K⁻¹ rhs: n multiply + sublane-reduce steps
-        for i in range(n):
-            x_out[i:i + 1, :] = jnp.sum(Kinv_ref[i] * rhs, axis=0,
-                                        keepdims=True)
-        xt = x_out[:]                                        # (n, B)
-        # A x̃: m multiply + sublane-reduce steps
-        for j in range(m):
-            av_ref[j:j + 1, :] = jnp.sum(A_ref[j] * xt, axis=0,
-                                         keepdims=True)
-        return v + alpha * (av_ref[:] - z)
+    def body(_, carry):
+        v, _ = carry
+        z = jnp.minimum(jnp.maximum(v, l), u)
+        w = rho * (2.0 * z - v)
+        rhs = jnp.sum(A * w[:, None], axis=0) - q            # Aᵀw − q
+        x = jnp.sum(Kinv * rhs[None, :], axis=1)             # K⁻¹ rhs
+        ax = jnp.sum(A * x[None, :], axis=1)                 # A x̃
+        return v + alpha * (ax - z), x
 
-    v_out[:] = jax.lax.fori_loop(0, iters, body, v_ref[:])
+    v, x = jax.lax.fori_loop(0, iters, body, (v_ref[...], jnp.zeros_like(q)))
+    v_out[...] = v
+    x_out[...] = x
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("iters", "alpha", "block_lanes", "interpret"))
-def admm_lane_stage(
-    v: jnp.ndarray,         # (m, B) pre-clip constraint-space iterate
-    rho: jnp.ndarray,       # (m, B) per-lane penalty vector (s ⊙ base_rho)
-    A: jnp.ndarray,         # (m, n, B) per-lane constraints (scaled frame)
-    Kinv: jnp.ndarray,      # (n, n, B) per-lane KKT inverse at this ρ
-    q: jnp.ndarray,         # (n, B) per-lane linear cost (scaled frame)
-    l: jnp.ndarray,         # (m, B)
-    u: jnp.ndarray,         # (m, B)
-    *,
-    iters: int,
-    alpha: float = 1.6,
-    block_lanes: int = 128,
-    interpret: Optional[bool] = None,
-) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Run ``iters`` fused per-lane v-space ADMM iterations; returns (v, x̃).
+def _pow2(k: int) -> int:
+    return 1 << max(0, (k - 1).bit_length())
 
-    ``B`` is padded to a lane block internally (padded lanes iterate on a
-    trivial identity problem). ±inf bounds are fine. ``interpret`` defaults
-    to True off-TPU. The returned x̃ is the last iteration's primal in the
-    scaled frame (z, y are recoverable views: ``z = clip(v, l, u)``,
-    ``y = ρ(v − z)``).
-    """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    m, B = v.shape
-    n = q.shape[0]
-    block = min(block_lanes, B) if interpret else block_lanes
-    pad = (-B) % block
-    if pad:
-        padv = lambda a: jnp.pad(a, ((0, 0), (0, pad)))
-        v, q, l, u = padv(v), padv(q), padv(l), padv(u)
-        rho = jnp.pad(rho, ((0, 0), (0, pad)), constant_values=1.0)
-        A = jnp.pad(A, ((0, 0), (0, 0), (0, pad)))
-        # identity K⁻¹ on padded lanes keeps the iteration finite
-        Kinv = jnp.pad(Kinv, ((0, 0), (0, 0), (0, pad)))
-        lane_pad = jax.lax.broadcasted_iota(
-            jnp.int32, (1, 1, B + pad), 2) >= B
-        Kinv = jnp.where(lane_pad,
-                         jnp.eye(n, dtype=v.dtype)[:, :, None], Kinv)
-    Bp = B + pad
 
-    mat = lambda r, c: pl.BlockSpec((r, c, block), lambda i: (0, 0, i),
-                                    memory_space=pltpu.VMEM)
-    vec = lambda r: pl.BlockSpec((r, block), lambda i: (0, i),
-                                 memory_space=pltpu.VMEM)
-    kernel = functools.partial(
-        _lane_kernel, iters=iters, alpha=float(alpha), m=m, n=n)
-    v_out, x_out = pl.pallas_call(
-        kernel,
-        grid=(Bp // block,),
+def _stage_call(v, rho, A, Kinv, q, l, u, *, iters, alpha, interpret):
+    B, m = v.shape
+    n = q.shape[-1]
+    vec = lambda r: pl.BlockSpec((None, r), lambda b: (b, 0))
+    mat = lambda r, c: pl.BlockSpec((None, r, c), lambda b: (b, 0, 0))
+    return pl.pallas_call(
+        functools.partial(_lane_kernel, iters=iters, alpha=alpha),
+        grid=(B,),
         in_specs=[vec(m), vec(m), mat(m, n), mat(n, n), vec(n), vec(m),
                   vec(m)],
         out_specs=[vec(m), vec(n)],
-        out_shape=[jax.ShapeDtypeStruct((m, Bp), v.dtype),
-                   jax.ShapeDtypeStruct((n, Bp), v.dtype)],
-        input_output_aliases={0: 0},
-        scratch_shapes=[pltpu.VMEM((n, block), v.dtype),
-                        pltpu.VMEM((m, block), v.dtype)],
+        out_shape=[jax.ShapeDtypeStruct((B, m), v.dtype),
+                   jax.ShapeDtypeStruct((B, n), v.dtype)],
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=NUM_WARPS, num_stages=1),
         interpret=interpret,
+        name="admm_lane_stage",
     )(v, rho, A, Kinv, q, l, u)
-    return v_out[:, :B], x_out[:, :B]
+
+
+@functools.partial(jax.jit, static_argnames=("iters", "alpha"))
+def admm_lane_stage(
+    v: jnp.ndarray,         # (B, m) pre-clip constraint-space iterate
+    rho: jnp.ndarray,       # (B, m) per-lane penalty vector (s ⊙ base_rho)
+    A: jnp.ndarray,         # (B, m, n) per-lane constraints (scaled frame)
+    Kinv: jnp.ndarray,      # (B, n, n) per-lane KKT inverse at this ρ
+    q: jnp.ndarray,         # (B, n) per-lane linear cost (scaled frame)
+    l: jnp.ndarray,         # (B, m)
+    u: jnp.ndarray,         # (B, m)
+    *,
+    iters: int,
+    alpha: float = 1.6,
+) -> Tuple[jnp.ndarray, jnp.ndarray]:
+    """Run ``iters`` fused per-lane v-space ADMM iterations; returns (v, x̃).
+
+    ``m`` and ``n`` are padded to powers of two internally (padded rows have
+    ``A = 0``, ``l = u = 0``, so their iterate stays 0; padded columns have
+    ``K⁻¹ = 0``, so their primal stays 0). ±inf bounds are fine. The
+    returned x̃ is the last iteration's primal in the scaled frame (z, y are
+    recoverable views: ``z = clip(v, l, u)``, ``y = ρ(v − z)``).
+    """
+    B, m = v.shape
+    n = q.shape[-1]
+    mp, np_ = _pow2(m), _pow2(n)
+    if (mp, np_) != (m, n):
+        rows = lambda a, c=0.0: jnp.pad(a, ((0, 0), (0, mp - m)),
+                                        constant_values=c)
+        cols = lambda a: jnp.pad(a, ((0, 0), (0, np_ - n)))
+        v, l, u = rows(v), rows(l), rows(u)
+        rho = rows(rho, 1.0)
+        q = cols(q)
+        A = jnp.pad(A, ((0, 0), (0, mp - m), (0, np_ - n)))
+        Kinv = jnp.pad(Kinv, ((0, 0), (0, np_ - n), (0, np_ - n)))
+    call = functools.partial(_stage_call, iters=iters, alpha=float(alpha))
+    v_out, x_out = jax.lax.platform_dependent(
+        v, rho, A, Kinv, q, l, u,
+        cpu=functools.partial(call, interpret=True),
+        cuda=functools.partial(call, interpret=False),
+    )
+    return v_out[:, :m], x_out[:, :n]
+
+
+def admm_lane_stage_reference(v, rho, A, Kinv, q, l, u, *, iters: int,
+                              alpha: float = 1.6):
+    """Plain XLA version of :func:`admm_lane_stage` (same recursion, batched
+    f32 matvecs at ``Precision.HIGHEST``) — the kernel's test reference."""
+    mv = lambda spec, a, b: jnp.einsum(spec, a, b,
+                                       precision=jax.lax.Precision.HIGHEST)
+
+    def body(_, carry):
+        v, _ = carry
+        z = jnp.clip(v, l, u)
+        w = rho * (2.0 * z - v)
+        x = mv("bij,bj->bi", Kinv, mv("bmn,bm->bn", A, w) - q)
+        return v + alpha * (mv("bmn,bn->bm", A, x) - z), x
+
+    return jax.lax.fori_loop(0, iters, body, (v, jnp.zeros_like(q)))

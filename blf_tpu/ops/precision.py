@@ -1,35 +1,33 @@
-"""Matmul-precision discipline for TPU numerics.
+"""Matmul-precision discipline for GPU numerics.
 
-On TPU the MXU contracts f32 operands through bf16 passes by default
-(``Precision.DEFAULT``), giving ~2⁻⁸ relative product error. That is fine
-for neural nets and catastrophic for this framework's linear algebra:
-rotation-chain forward kinematics drift, mass-matrix Cholesky solves lose
-~3 digits, and ADMM/QP fixed points shift by more than the convergence
-tolerance. Every CPU run hides the problem (CPU has no bf16 fast path), so
-it surfaces only on hardware — measured on v5e: the whole-body QP's
-in-loop residuals degraded 400× (median 3.2e-3 vs 7.6e-6 on CPU) before
-the dynamics/kinematics call chain was wrapped.
+On an NVIDIA card an f32 matrix product at ``Precision.DEFAULT`` may run on
+the tensor cores in TF32, which keeps a 10-bit mantissa (~2⁻¹¹ relative
+product error). That is fine for neural nets and wrong for this framework's
+linear algebra: rotation-chain forward kinematics drift, mass-matrix solves
+lose ~3 digits, and ADMM/QP fixed points shift by more than the convergence
+tolerance. A CPU run hides the problem (the CPU has no TF32 path), so it
+would surface only on the card.
 
-:func:`f32_matmuls` is the one shared decorator (previously private to
-``blf_tpu.mpc.qp``): it runs everything traced inside the function under
-``jax.default_matmul_precision("float32")``. Apply it to public entry
-points whose outputs feed solvers or integrators. Pallas kernels manage
-their own precision explicitly (bf16 split products ARE the precision) and
-are unaffected — Mosaic rejects an inherited f32 contract on bf16 inputs,
-which is why the kernels pin ``Precision.DEFAULT`` locally.
+:func:`f32_matmuls` is the one shared decorator: it runs everything traced
+inside the function under ``jax.default_matmul_precision("float32")``.
+Apply it to public entry points whose outputs feed solvers or integrators.
+:func:`reduced_precision_dots` audits a lowered program for any product the
+guards missed; the test suite and ``chip_smoke.py`` hold the production
+programs to zero.
 """
 
 from __future__ import annotations
 
 import functools
+import re
 
 import jax
 
-__all__ = ["f32_matmuls"]
+__all__ = ["f32_matmuls", "reduced_precision_dots"]
 
 
 def f32_matmuls(fn):
-    """Run every matmul traced inside ``fn`` at full f32 on TPU."""
+    """Run every matmul traced inside ``fn`` at full f32 (no TF32)."""
 
     @functools.wraps(fn)
     def wrapped(*args, **kwargs):
@@ -37,3 +35,14 @@ def f32_matmuls(fn):
             return fn(*args, **kwargs)
 
     return wrapped
+
+
+_DOT = re.compile(r"stablehlo\.(dot_general|dot|convolution)\b")
+
+
+def reduced_precision_dots(lowered) -> list:
+    """StableHLO lines of the products in ``lowered`` (a ``jax.stages.
+    Lowered``) that are not at ``Precision.HIGHEST`` on both operands."""
+    return [line.strip() for line in lowered.as_text().splitlines()
+            if _DOT.search(line)
+            and "precision = [HIGHEST, HIGHEST]" not in line]

@@ -2,7 +2,7 @@
 
 The "collective QP reduce" of BASELINE.json: per-shard solver diagnostics
 (convergence flags, residuals, costs) reduced across the ``data`` axis with
-XLA collectives (``psum``/``pmax``/``pmin`` — ICI traffic, not DCN), replacing
+XLA collectives (``psum``/``pmax``/``pmin``), replacing
 nothing in the reference (it has no distributed layer, SURVEY.md §2.3) but
 required by the north star's multi-host sweep.
 

@@ -1,7 +1,7 @@
 """Mesh/topology module — the framework's distribution substrate.
 
 The reference is single-threaded, single-process (verified exhaustively,
-SURVEY.md §2.3); scaling is a *new* first-class component of the TPU build:
+SURVEY.md §2.3); scaling is a *new* first-class component of this build:
 scenario data-parallelism over a ``("data",)`` axis is the primary strategy
 (thousands of independent MPC scenarios), with a ``("model",)`` axis reserved
 for sharding within one solve (horizon/constraint-row blocks).
@@ -13,52 +13,16 @@ sharded fleet step in :mod:`blf_tpu.parallel.sweep`.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Tuple
 
 import jax
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-__all__ = ["init_distributed", "make_mesh", "shard_batch", "replicate",
-           "data_parallel_specs"]
+__all__ = ["make_mesh", "shard_batch", "replicate", "data_parallel_specs"]
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
-
-
-def init_distributed(
-    coordinator_address: Optional[str] = None,
-    num_processes: Optional[int] = None,
-    process_id: Optional[int] = None,
-) -> int:
-    """Initialize multi-host JAX (one process per host of a pod slice).
-
-    Thin, idempotent wrapper over ``jax.distributed.initialize``: on cloud
-    TPU pods all three arguments are discovered from the runtime metadata,
-    so bare ``init_distributed()`` is the whole multi-host launch story —
-    afterwards ``jax.devices()`` spans the slice, :func:`make_mesh` builds a
-    global mesh whose data axis rides ICI within hosts and DCN across them,
-    and the ``shard_map`` fleet step (:mod:`blf_tpu.parallel.sweep`) runs
-    unchanged (BASELINE "N ≥ 2 hosts" row). Single-process runs (no
-    coordinator, one host) skip initialization and return 0.
-
-    Returns this host's process index.
-    """
-    already = getattr(jax.distributed, "is_initialized", None)
-    if callable(already) and already():
-        return jax.process_index()
-    if coordinator_address is None and num_processes is None:
-        try:  # cloud TPU metadata path: fully automatic discovery
-            jax.distributed.initialize()
-        except (ValueError, RuntimeError):
-            return 0  # single-process (CPU dev box / one-host run)
-    else:
-        jax.distributed.initialize(
-            coordinator_address=coordinator_address,
-            num_processes=num_processes,
-            process_id=process_id,
-        )
-    return jax.process_index()
 
 
 def make_mesh(
@@ -69,9 +33,9 @@ def make_mesh(
     """Build a ``(data, model)`` mesh over the available devices.
 
     ``n_devices`` defaults to all of ``jax.devices()``; ``model_axis`` is how
-    many devices each scenario-shard group spans (1 = pure DP). On a v5e pod
-    slice the data axis rides ICI; DCN only enters across hosts via
-    ``jax.distributed`` initialization (outside this function's scope).
+    many devices each scenario-shard group spans (1 = pure DP). The cards of
+    one host reach each other all to all at one rate, so devices are placed
+    in enumeration order: the shape follows the algorithm alone.
     """
     devices = jax.devices()
     if n_devices is None:
@@ -81,16 +45,6 @@ def make_mesh(
     if n_devices % model_axis != 0:
         raise ValueError("n_devices must be divisible by model_axis")
     shape = (n_devices // model_axis, model_axis)
-    if n_devices == len(devices):
-        # topology-aware placement: contiguous ICI neighborhoods per axis
-        # (and per host on multi-host slices); falls back to enumeration
-        # order when the physical topology doesn't factor into the shape.
-        try:
-            from jax.experimental import mesh_utils
-
-            return Mesh(mesh_utils.create_device_mesh(shape), axis_names)
-        except (ValueError, NotImplementedError, AssertionError):
-            pass
     grid = np.asarray(devices[:n_devices]).reshape(shape)
     return Mesh(grid, axis_names)
 

@@ -2,7 +2,7 @@
 mesh axis.
 
 SURVEY.md §2.3 lists pipeline parallelism as a strategy absent from the
-reference (which is single-threaded end to end) that the TPU build must still
+reference (which is single-threaded end to end) that this build must still
 provide as a first-class component: "stage the MPC pipeline (rollout →
 linearization → QP factor → QP solve → line search) across mesh axes with
 ``jax.lax`` collective permutes". This module is that component — a generic
@@ -11,7 +11,7 @@ combinator, not MPC-specific:
 - ``S`` pipeline stages are placed one per device along a mesh axis;
 - a stream of ``M`` microbatches enters at stage 0; every tick each device
   applies *its* stage and hands its output to the next device with ONE
-  ``ppermute`` hop (neighbor-only ICI traffic — no all-to-all, no gather);
+  ``ppermute`` hop (neighbor-only traffic — no all-to-all, no gather);
 - after the classic ``S − 1``-tick fill bubble the pipeline is full: all
   ``S`` devices compute concurrently on consecutive microbatches, and one
   finished microbatch exits per tick. Total ``M + S − 1`` ticks; bubble

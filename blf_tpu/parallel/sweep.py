@@ -5,7 +5,7 @@ expressed as a single ``shard_map`` program over a ``(data, model)`` mesh:
 
 - ``data`` axis: scenario data-parallelism — each device group owns a slice
   of the fleet; lanes never migrate, so the only cross-device traffic is the
-  collective reduction of solver statistics (ICI-friendly).
+  collective reduction of solver statistics.
 - ``model`` axis: **disturbance-ensemble parallelism** — each model-lane
   solves its scenario slice under a different push realization; ensemble
   consensus (``pmean`` of plans) and worst-case constraint margins
@@ -20,8 +20,7 @@ the controller, SURVEY.md §3.2's pairing).
 
 from __future__ import annotations
 
-import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +30,7 @@ from jax import shard_map
 from blf_tpu.estimators.rls import RLSParams, RLSState, rls_step
 from blf_tpu.models.lipm import LIPMParams, com_discrete_step, lipm_omega
 from blf_tpu.mpc.dcm import DCMWeights, solve_dcm_mpc
+from blf_tpu.ops.precision import f32_matmuls
 from blf_tpu.parallel.collectives import FleetStats, reduce_fleet_stats
 from blf_tpu.utils.status import SolverStatus, classify_qp, nan_quarantine
 
@@ -88,8 +88,8 @@ def make_fleet_step(
     Returns ``step(state, disturbance, dcm_ref, zmp_ref, poly_A, poly_b)
     -> (FleetState, TickResult)`` where ``disturbance`` is ``(B, K, 2)`` with
     ``K`` = mesh model-axis size (one push realization per ensemble lane).
-    Extra ``qp_kwargs`` (e.g. ``backend="pallas"``, ``check_every``) pass
-    through to :func:`blf_tpu.mpc.qp.solve_qp_factored`.
+    Extra ``qp_kwargs`` (e.g. ``refine``, ``check_every``) pass through to
+    :func:`blf_tpu.mpc.qp.solve_qp_factored`.
     """
     data_axis, model_axis = mesh.axis_names
 
@@ -98,6 +98,7 @@ def make_fleet_step(
         measurement_covariance=meas_noise * jnp.eye(2),
     )
 
+    @f32_matmuls
     def tick(state: FleetState, disturbance, dcm_ref, zmp_ref, poly_A, poly_b):
         # local shapes: state (B', …); disturbance (B', 1, 2) — this lane's draw
         dist = disturbance[:, 0, :]
@@ -215,16 +216,11 @@ def make_fleet_step(
         status=P(data_axis),
         num_quarantined=P(),
     )
-    # vma typing is kept for the XLA path; the Pallas in-kernel loop drops
-    # varying-axis types from its carry (jax 0.9 pallas×shard_map gap), so
-    # the fused-kernel backend runs with the check off.
-    check_vma = qp_kwargs.get("backend", "xla") == "xla"
     sharded = shard_map(
         tick,
         mesh=mesh,
         in_specs=(state_spec, P(data_axis, model_axis), P(), P(), P(), P()),
         out_specs=(state_spec, result_spec),
-        check_vma=check_vma,
     )
     stepped = jax.jit(sharded)
     # expose the un-jitted sharded tick so callers can lax.scan many ticks

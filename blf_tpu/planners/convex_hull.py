@@ -83,7 +83,7 @@ def monotone_chain_2d(points: jnp.ndarray, valid=None) -> Polygon2D:
     ``points`` is ``(K, 2)``; ``valid`` an optional ``(K,)`` bool mask of real
     points (padding allowed). Returns the hull as a :class:`Polygon2D` with at
     most ``K`` CCW vertices. Entirely ``lax``-structured (sort + fori_loop over
-    a fixed bound) so it jits, vmaps, and runs on TPU — the device-side
+    a fixed bound) so it jits, vmaps, and runs on the device — the device-side
     replacement for calling Qhull per scenario (SURVEY.md §3.4).
     """
     K = points.shape[0]

@@ -2,7 +2,7 @@
 
 The reference serializes nothing (SURVEY.md §5 "checkpoint/resume: absent" —
 state lives in member buffers, ``DynamicalSystem.h:52-54``,
-``RecursiveLeastSquare.h:30-42``). The TPU build needs restartable sweeps:
+``RecursiveLeastSquare.h:30-42``). Batched sweeps need to be restartable:
 this module snapshots any pytree (scenario states, covariances, warm-start
 trajectories, RNG keys) at sweep granularity.
 

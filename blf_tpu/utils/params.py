@@ -1,6 +1,6 @@
 """Typed hierarchical configuration — the reference's ParametersHandler layer.
 
-TPU-native re-design of the reference's configuration stack
+Accelerator-native re-design of the reference's configuration stack
 (``src/ParametersHandler/include/BipedalLocomotion/ParametersHandler/IParametersHandler.h:26-249``,
 ``StdImplementation.h:27-236``, YARP ``.ini`` backend
 ``YarpImplementation.cpp:110-197``): a backend-agnostic typed key/value store with

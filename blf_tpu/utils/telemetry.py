@@ -3,7 +3,7 @@
 The reference's only runtime data-out channel is packing mixed scalars/vectors
 into one ``yarp::sig::Vector`` and publishing it on a buffered port
 (``mergeSigVector``/``sendVariadicVector``, ``YarpUtilities/Helper.tpp:179-237``;
-SURVEY.md §5 "metrics/logging"). The TPU-native mapping (SURVEY.md §7): flatten
+SURVEY.md §5 "metrics/logging"). The accelerator-native mapping (SURVEY.md §7): flatten
 a pytree of device metrics into ONE array, move it device→host once per tick,
 and fan it back out to named channels on the host — minimizing transfers the
 way the reference's single-port packing minimized YARP messages.

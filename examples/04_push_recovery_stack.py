@@ -11,11 +11,11 @@ Run: JAX_PLATFORMS=cpu python examples/04_push_recovery_stack.py
 (~2-3 min: one compile of the whole 0.1 s control tick, then 6 ticks)
 
 This example uses the single-robot vmappable tick (`make_stack_step`).
-For on-chip FLEETS, use `make_fleet_stack_step` — identical semantics,
-but the batch is explicit so the two QP solves run as single batched
-calls on the fused Pallas backends (``mpc_backend="pallas"``,
-``wbc_backend="pallas"``, ``plant_lagged_minv=True``) — the production
-path of `benchmarks/stack_bench.py` and the committed `STACK_r05.json`.
+For FLEETS on a card, use `make_fleet_stack_step` — identical semantics,
+but the batch is explicit so the two QP solves run as single batched calls
+(the WBC on the fused lane kernel, ``wbc_backend="pallas"``, with
+``plant_lagged_minv=True``) — the production path of
+`benchmarks/stack_bench.py`.
 """
 
 import pathlib

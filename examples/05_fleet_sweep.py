@@ -10,12 +10,12 @@ auxiliary subsystems ride along the way SURVEY.md §5 prescribes: per-lane
 device→host transfer), and a mid-run checkpoint that is reloaded and
 verified to continue **bitwise** identically.
 
-On TPU this is the bench.py workload (98304 lanes/chip); on CPU it runs a
-miniature fleet over 8 virtual devices:
+On a GPU this is the bench.py fleet size (98304 lanes per card); on CPU it
+runs a miniature fleet over 8 virtual devices:
 
 Run: JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \\
          python examples/05_fleet_sweep.py
-or on TPU:  python examples/05_fleet_sweep.py  (bigger batch, pallas kernel)
+or on a GPU:  python examples/05_fleet_sweep.py
 """
 
 import pathlib
@@ -30,20 +30,16 @@ import numpy as np
 
 def main():
     import jax
-
-    if "cpu" in os.environ.get("JAX_PLATFORMS", ""):
-        jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
     from blf_tpu.models.lipm import LIPMParams
     from blf_tpu.parallel.mesh import make_mesh, shard_batch
     from blf_tpu.parallel.sweep import init_fleet, make_fleet_step
 
-    on_tpu = jax.default_backend() == "tpu"
+    on_gpu = jax.default_backend() == "gpu"
     n_dev = len(jax.devices())
-    batch = 98304 if on_tpu else 64 * n_dev
+    batch = 98304 if on_gpu else 64 * n_dev
     horizon = 16
-    backend = "pallas" if on_tpu else "xla"
 
     dtype = jnp.float32
     params = LIPMParams(jnp.asarray(0.9, dtype), jnp.asarray(9.81, dtype))
@@ -65,9 +61,9 @@ def main():
     rng = np.random.default_rng(0)
     dist = jnp.asarray(rng.normal(0, 0.004, (batch, model_axis, 2)), dtype)
 
-    step = make_fleet_step(mesh, params, 0.1, iterations=50, backend=backend)
+    step = make_fleet_step(mesh, params, 0.1, iterations=50)
     print(f"mesh {mesh.devices.shape} {mesh.axis_names}, fleet {batch} "
-          f"scenarios, backend={backend}")
+          f"scenarios on {jax.default_backend()}")
 
     import tempfile
 

@@ -2,7 +2,7 @@
 
 The reference's ``Advanceable<T>`` (`Advanceable.h:24-46`) maps to the
 ``step(carry, *inputs) -> (carry', out)`` convention; these tests make the
-convention enforceable (VERDICT r2 missing #5) and pin that the framework's
+convention enforceable and pin that the framework's
 stateful components actually satisfy it.
 """
 

@@ -2,7 +2,7 @@
 
 Port of `src/Planners/tests/ContactListTest.cpp` and
 `ContactPhaseListTest.cpp` (every section and phase-boundary assertion), plus
-the dense array lowering unique to the TPU build (SURVEY.md §3.3).
+the dense array lowering unique to this build (SURVEY.md §3.3).
 """
 
 import numpy as np

@@ -221,9 +221,9 @@ class TestFleet:
         assert bool(jnp.all(new_tr.wbc_converged == ref_tr.wbc_converged))
 
     def test_fleet_step_kernel_backends(self):
-        """Kernel-backend fleet tick (interpret mode off-TPU): both QP
-        solves on the fused paths must stay finite and converge like the
-        XLA path on a small fleet."""
+        """Kernel-backend fleet tick (interpret mode on CPU): the WBC solve
+        on the fused lane kernel must stay finite and converge like the XLA
+        path on a small fleet."""
         from blf_tpu.mpc.stack import make_fleet_stack_step
         from blf_tpu.models.kinematics import frame_pose as _fp
 
@@ -237,7 +237,7 @@ class TestFleet:
             physics_per_wbc=4, plant_method="rosenbrock",
             mpc_iterations=60, wbc_iterations=150,
             wbc_check_every=150, wbc_polish_iters=25, compensate_push=True,
-            mpc_backend="pallas", wbc_backend="pallas",
+            wbc_backend="pallas",
             # production tolerance: cold-start lanes at 150 fused v-space
             # iterations/ tick sit ~3e-3 dual in f64 (no warm history in a
             # 2-tick test); the bench's convergence contract is 1e-4

@@ -1,6 +1,6 @@
 """Unrolled small-PSD linear algebra (blf_tpu.ops.linalg).
 
-Pins the TPU-fast batched Cholesky/solve paths to jnp.linalg ground truth —
+Pins the unrolled batched Cholesky/solve paths to jnp.linalg ground truth —
 the estimator stack (and any future small-system consumer) relies on these
 being bit-close while emitting zero linalg custom calls.
 """

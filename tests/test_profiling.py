@@ -24,32 +24,34 @@ from blf_tpu.utils.profiling import (
 
 
 class TestChipSpecs:
-    def test_detect_falls_back_to_cpu_spec(self):
-        spec = detect_chip(jax.devices()[0])
-        assert spec.name == "host CPU"
-
-    def test_longest_substring_match_wins(self):
+    def test_detect_h100_by_device_kind(self):
         class FakeDevice:
-            device_kind = "TPU v5 lite"
+            device_kind = "NVIDIA H100 80GB HBM3"
 
         spec = detect_chip(FakeDevice())
-        assert spec.name == "TPU v5e"
-        assert spec.peak_flops_bf16 == pytest.approx(197e12)
+        assert spec.name == "NVIDIA H100 SXM"
 
-    def test_v5p_not_shadowed_by_v5(self):
-        class FakeDevice:
-            device_kind = "TPU v5p"
+    def test_unknown_device_is_an_error(self):
+        """No made-up default: the CPU test device has no published peaks."""
+        with pytest.raises(KeyError, match="no published peaks"):
+            detect_chip(jax.devices()[0])
 
-        assert detect_chip(FakeDevice()).name == "TPU v5p"
+    def test_h100_peaks_match_data_sheet(self):
+        spec = CHIP_SPECS["NVIDIA H100 80GB HBM3"]
+        assert spec.peak_flops("bf16") == pytest.approx(989e12)
+        assert spec.peak_flops("tf32") == pytest.approx(495e12)
+        assert spec.peak_flops("f32") == pytest.approx(67e12)
+        assert spec.hbm_bytes_per_s == pytest.approx(3.35e12)
 
-    def test_bf16_peak_is_double_f32(self):
+    def test_peaks_ordered_by_precision(self):
         for spec in CHIP_SPECS.values():
-            assert spec.peak_flops("bf16") >= spec.peak_flops("f32")
+            assert (spec.peak_flops("bf16") >= spec.peak_flops("tf32")
+                    >= spec.peak_flops("f32"))
 
 
 class TestRoofline:
-    SPEC = ChipSpec("test", peak_flops_bf16=2e12, peak_flops_f32=1e12,
-                    hbm_bytes_per_s=1e11)
+    SPEC = ChipSpec("test", peak_flops_bf16=2e12, peak_flops_tf32=2e12,
+                    peak_flops_f32=1e12, hbm_bytes_per_s=1e11)
 
     def test_compute_bound_case(self):
         # 1e12 FLOP at 1e12 FLOP/s = 1 s; 1e9 B at 1e11 B/s = 0.01 s
@@ -91,7 +93,8 @@ class TestMeasureAndReport:
     def test_sol_report_fields_consistent(self):
         f = jax.jit(lambda x: x @ x)
         x = jnp.ones((256, 256), jnp.float32)
-        r = sol_report(f, x, label="mm", warmup=1, repeats=3)
+        r = sol_report(f, x, label="mm", warmup=1, repeats=3,
+                       spec=TestRoofline.SPEC)
         assert r["label"] == "mm"
         assert r["bound"] in ("compute", "memory")
         assert r["time_s"] > 0.0
@@ -120,7 +123,8 @@ class TestMeasureAndReport:
             lambda a, b, c: solve_qp_factored(factors, a, b, c,
                                               iterations=20)
         )(qq, ll, uu))
-        r = sol_report(solve, q, l, u, label="qp", warmup=1, repeats=2)
+        r = sol_report(solve, q, l, u, label="qp", warmup=1, repeats=2,
+                       spec=TestRoofline.SPEC)
         assert r["flops"] > 0.0
         assert r["time_s"] > 0.0
 

@@ -212,39 +212,10 @@ class TestDualPolish:
         )
 
 
-class TestRefineContract:
-    """refine=True + pallas backend: warn and record the downgrade (ADVICE r1)."""
-
-    def _shared_problem(self, batch=256):
-        from blf_tpu.mpc.qp import solve_qp_shared
-
-        rng = np.random.default_rng(3)
-        n, m = 8, 6
-        P = jnp.asarray(random_spd(n, rng))
-        A = jnp.asarray(rng.normal(size=(m, n)))
-        q = jnp.asarray(rng.normal(size=(batch, n)))
-        l = jnp.full((batch, m), -1.0)
-        u = jnp.full((batch, m), 1.0)
-        return solve_qp_shared, (P, q, A, l, u)
-
-    def test_explicit_refine_on_pallas_warns(self):
-        solve, args = self._shared_problem()
-        with pytest.warns(UserWarning, match="refine=True is not supported"):
-            sol = solve(*args, iterations=50, backend="pallas", refine=True)
-        assert not bool(sol.refined)
-
-    def test_refined_field_reflects_backend(self):
-        solve, args = self._shared_problem()
-        assert bool(solve(*args, iterations=25).refined)
-        assert not bool(
-            solve(*args, iterations=25, backend="pallas").refined
-        )
-        assert not bool(solve(*args, iterations=25, refine=False).refined)
-
-
 class TestPerLaneFused:
-    """solve_qp_lanes — the fused per-lane-operator path (r5: the WBC shape
-    of the control stack). Interpret mode on CPU runs the same kernels."""
+    """solve_qp_lanes — the fused per-lane-operator path (the WBC shape of
+    the control stack). Interpret mode on CPU runs the same kernel source
+    that is compiled for the GPU."""
 
     def make_fleet(self, B=5, n=12, m=18, seed=0):
         rng = np.random.default_rng(seed)

@@ -237,8 +237,7 @@ class TestRowShardedQP:
 
         f, q, l, u = self._problem()
         m = f.A_s.shape[-2]
-        ref = solve_qp_factored(f, q, l, u, iterations=150, refine=False,
-                                backend="xla")
+        ref = solve_qp_factored(f, q, l, u, iterations=150, refine=False)
 
         mesh = Mesh(np.array(jax.devices()[:shards]).reshape(shards),
                     ("model",))

@@ -276,8 +276,8 @@ class TestDCMPlanner:
 
 class TestParallelBackward:
     """SQP with the O(log T) associative-scan backward: identical solutions
-    to the sequential pass (VERDICT r2 next-step 6 — connect the SP
-    machinery to the nonlinear stack)."""
+    to the sequential pass (the SP machinery connected to the nonlinear
+    stack)."""
 
     @pytest.mark.parametrize("T", [16, 64])
     def test_matches_sequential_on_planner_problem(self, T):
